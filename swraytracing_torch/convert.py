@@ -1,0 +1,83 @@
+"""Carry state and operators across the package boundary as plain numpy.
+
+A run of the JAX package (swraytracing_tpu) can hand its state to this
+package, and the reverse, without either package seeing the other's
+objects: the carrier is a dict of numpy arrays with the carry's field
+names,
+
+    {"flow_state": {"qk", "rhs_m1", "rhs_m2", "t", "step"},
+     "packet_x", "packet_k", "prev_fields", "prev_win", "overflow"}
+
+where "prev_win" and "overflow" may be None (or absent).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.grid import complex_dtype, resolve_device
+from .models.coupled import CoupledCarry
+from .models.qg2 import QG2Operators, QG2State
+
+__all__ = ["carry_from_numpy", "carry_to_numpy", "operators_from_numpy"]
+
+
+def carry_from_numpy(tree: dict, device=None,
+                     dtype: torch.dtype = torch.float32) -> CoupledCarry:
+    """Build a CoupledCarry (two-layer flow state) from a dict of numpy
+    arrays. Real arrays become `dtype`, spectra its complex counterpart,
+    on `device` (None = the CUDA device; raises when there is none).
+    `t` and `step` become host scalars. Every array is copied: the carry
+    never aliases the caller's numpy memory."""
+    device = resolve_device(device)
+    cd = complex_dtype(dtype)
+
+    def real(a):
+        return None if a is None else torch.tensor(
+            np.asarray(a), dtype=dtype, device=device)
+
+    def spec(a):
+        return torch.tensor(np.asarray(a), dtype=cd, device=device)
+
+    fs = tree["flow_state"]
+    state = QG2State(qk=spec(fs["qk"]), rhs_m1=spec(fs["rhs_m1"]),
+                     rhs_m2=spec(fs["rhs_m2"]), t=float(fs["t"]),
+                     step=int(fs["step"]))
+    ov = tree.get("overflow")
+    if ov is not None:
+        ov = torch.tensor(np.asarray(ov), dtype=torch.int32, device=device)
+    return CoupledCarry(flow_state=state, packet_x=real(tree["packet_x"]),
+                        packet_k=real(tree["packet_k"]),
+                        prev_fields=real(tree["prev_fields"]),
+                        prev_win=real(tree.get("prev_win")), overflow=ov)
+
+
+def carry_to_numpy(carry: CoupledCarry) -> dict:
+    """The inverse of carry_from_numpy: copies every tensor to the host
+    (one synchronisation) and returns the dict of numpy arrays."""
+
+    def arr(t):
+        return None if t is None else t.detach().cpu().numpy()
+
+    fs = carry.flow_state
+    return {
+        "flow_state": {"qk": arr(fs.qk), "rhs_m1": arr(fs.rhs_m1),
+                       "rhs_m2": arr(fs.rhs_m2), "t": np.float64(fs.t),
+                       "step": np.int32(fs.step)},
+        "packet_x": arr(carry.packet_x),
+        "packet_k": arr(carry.packet_k),
+        "prev_fields": arr(carry.prev_fields),
+        "prev_win": arr(carry.prev_win),
+        "overflow": arr(carry.overflow),
+    }
+
+
+def operators_from_numpy(B, expLdt, expL2dt, dt) -> QG2Operators:
+    """QG2Operators from host-built arrays (for example the JAX package's
+    `build_operators` output), kept in float64 / complex128 on the host;
+    the stepping functions take their device view from it."""
+    return QG2Operators(B=np.asarray(B, dtype=np.float64),
+                        expLdt=np.asarray(expLdt, dtype=np.complex128),
+                        expL2dt=np.asarray(expL2dt, dtype=np.complex128),
+                        dt=float(dt))

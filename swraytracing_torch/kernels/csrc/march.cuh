@@ -1,0 +1,355 @@
+// Fused wave-packet march for Hopper (sm_90a): every substep and stage of
+// the ray ODE over one flow step, for all packets, in one launch.
+//
+// Replaces the TPU Pallas kernel `_march_kernel` (launched by
+// `march_pallas`) of swraytracing_tpu/ops/pallas_window.py, and computes
+// what `_march_core` there computes. Its plain PyTorch version is
+// `march_reference` in swraytracing_torch/ops/march_window.py; the
+// arithmetic below follows it operation for operation (same Lagrange
+// products, y-then-x contraction, same stage formulas), so the two differ
+// only by fused multiply-adds and by skipping the window entries whose
+// weight is exactly zero.
+//
+// Design. The TPU kernel keeps packets on vector lanes and shifts the six
+// stencil weights into the SW-wide window with select-sums, because a
+// lane cannot index on its own. A GPU thread can: here one thread owns one
+// packet, computes its 6 (+6 derivative) weights per axis in registers,
+// and contracts only the live 6x6 sub-window at offset (di+m, dj+m) of
+// its gathered row, blending the two snapshots as it reads. The window
+// arrays come in through two strides (packet to packet, component to
+// component), so the (Np, K) gather-row layout, the (K, Np) layout and the
+// combined two-snapshot layouts are all this one kernel.
+//
+// Bound on this card: bytes. Each packet's 2K window values are read once
+// (about 1 KB at nf=2, margin 1, float32) against a few thousand
+// floating-point operations. This first version re-reads the live
+// sub-window from global memory at every stage (through L1/L2) and, in
+// the (Np, K) layout, reads 24-byte runs that neighbouring threads do not
+// share; staging each row once in shared memory with coalesced 16-byte
+// loads is the step that brings it towards the bound.
+//
+// This header holds the kernel; march_f32.cu and march_f64.cu instantiate
+// it for one scalar type each, so the two compile side by side.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+enum { RK23 = 0, RK4 = 1, SYMPLECTIC = 2 };
+
+template <typename T>
+struct MarchArgs {
+  const T* p1;          // snapshot-1 windows
+  const T* p2;          // snapshot-2 windows
+  long long sp;         // stride between packets, in elements
+  long long se;         // stride between window components, in elements
+  const T* xk;          // (4, Np)
+  const int* oi;        // (Np,)
+  const int* oj;        // (Np,)
+  T* out;               // (4, Np)
+  int* ov;              // (Np,)
+  long long np;
+  double sub_dt;
+  int nx, ny;
+  double inv_dx, inv_dy, f2, gH;
+  int margin, nsub;
+};
+
+__device__ __forceinline__ float fmod_(float a, float b) { return fmodf(a, b); }
+__device__ __forceinline__ double fmod_(double a, double b) { return fmod(a, b); }
+__device__ __forceinline__ float floor_(float a) { return floorf(a); }
+__device__ __forceinline__ double floor_(double a) { return floor(a); }
+__device__ __forceinline__ float sqrt_(float a) { return sqrtf(a); }
+__device__ __forceinline__ double sqrt_(double a) { return sqrt(a); }
+
+// Floored modulo, as torch.remainder and jnp.mod: the result takes the
+// sign of n, and can be exactly n for a tiny negative x.
+template <typename T>
+__device__ __forceinline__ T floored_mod(T x, T n) {
+  T r = fmod_(x, n);
+  if (r != T(0) && ((r < T(0)) != (n < T(0)))) r += n;
+  return r;
+}
+
+// Lagrange basis weights for nodes -2..3 at fractional position fr, and
+// their derivatives. Products run over ascending j and multiply by the
+// reciprocal of the constant denominator, as the plain version does.
+template <typename T>
+__device__ __forceinline__ void lagrange(T fr, T* w, T* dw, bool want_dw) {
+  const T a[6] = {fr - T(-2), fr - T(-1), fr - T(0),
+                  fr - T(1),  fr - T(2),  fr - T(3)};
+  const T rd[6] = {T(1.0 / -120.0), T(1.0 / 24.0),  T(1.0 / -12.0),
+                   T(1.0 / 12.0),   T(1.0 / -24.0), T(1.0 / 120.0)};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    T p = T(0);
+    bool first = true;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if (j == i) continue;
+      p = first ? a[j] : p * a[j];
+      first = false;
+    }
+    w[i] = p * rd[i];
+  }
+  if (!want_dw) return;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    T s = T(0);
+    bool first_s = true;
+#pragma unroll
+    for (int m = 0; m < 6; ++m) {
+      if (m == i) continue;
+      T p = T(0);
+      bool first = true;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        if (j == i || j == m) continue;
+        p = first ? a[j] : p * a[j];
+        first = false;
+      }
+      s = first_s ? p : s + p;
+      first_s = false;
+    }
+    dw[i] = s * rd[i];
+  }
+}
+
+// Interpolate the time-blended fields at (x0, x1) from this packet's
+// windows r1, r2. F = [u, v, ux, uy, vx, vy]. Returns the margin excess.
+template <typename T, bool GRAD>
+__device__ __forceinline__ int eval_fields(const MarchArgs<T>& A,
+                                           const T* __restrict__ r1,
+                                           const T* __restrict__ r2,
+                                           T x0, T x1, double alpha_d,
+                                           int oi, int oj, T* F) {
+  const int nx = A.nx, ny = A.ny, m = A.margin;
+  const int sw = 6 + 2 * m;
+  const T inv_dx = T(A.inv_dx), inv_dy = T(A.inv_dy);
+  const T xl = floored_mod(x0 * inv_dx, T(nx));
+  const T yl = floored_mod(x1 * inv_dy, T(ny));
+  const T i0f = floor_(xl), j0f = floor_(yl);
+  const T fx = xl - i0f, fy = yl - j0f;
+  int i0 = int(i0f), j0 = int(j0f);
+  if (i0 >= nx) i0 -= nx;  // floor(mod) floating-point edge
+  if (j0 >= ny) j0 -= ny;
+  int di = i0 - oi;
+  if (di > nx / 2) di -= nx;
+  if (di < -(nx / 2)) di += nx;
+  int dj = j0 - oj;
+  if (dj > ny / 2) dj -= ny;
+  if (dj < -(ny / 2)) dj += ny;
+  const int ov = max(max(abs(di), abs(dj)) - m, 0);  // before the clamp
+  di = min(max(di, -m), m);
+  dj = min(max(dj, -m), m);
+
+  T wx[6], wy[6], dwx[6], dwy[6];
+  lagrange(fx, wx, dwx, GRAD);
+  lagrange(fy, wy, dwy, GRAD);
+
+  const T alpha = T(alpha_d);
+  const T oma = T(1.0 - alpha_d);
+  constexpr int NF = GRAD ? 2 : 6;
+  T val[NF], gx[NF], gy[NF];  // sum_x ty*wx, sum_x ty*dwx, sum_x tdy*wx
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    T acc = T(0), accx = T(0), accy = T(0);
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      const long long base =
+          ((long long)((f * sw + di + m + a) * sw + dj + m)) * A.se;
+      T ty = T(0), tdy = T(0);
+#pragma unroll
+      for (int b = 0; b < 6; ++b) {  // y first
+        const long long at = base + b * A.se;
+        const T v = oma * __ldg(r1 + at) + alpha * __ldg(r2 + at);
+        ty += v * wy[b];
+        if (GRAD) tdy += v * dwy[b];
+      }
+      acc += ty * wx[a];               // then x
+      if (GRAD) {
+        accx += ty * dwx[a];
+        accy += tdy * wx[a];
+      }
+    }
+    val[f] = acc;
+    gx[f] = accx;
+    gy[f] = accy;
+  }
+  if (GRAD) {
+    F[0] = val[0];
+    F[1] = val[1];
+    F[2] = gx[0] * inv_dx;
+    F[3] = gy[0] * inv_dy;
+    F[4] = gx[1] * inv_dx;
+    F[5] = gy[1] * inv_dy;
+  } else {
+#pragma unroll
+    for (int f = 0; f < 6; ++f) F[f] = val[f < NF ? f : 0];
+  }
+  return ov;
+}
+
+// Right-hand side of the ray ODE: d = [dx0, dx1, dk0, dk1].
+template <typename T, bool GRAD>
+__device__ __forceinline__ int rhs(const MarchArgs<T>& A,
+                                   const T* __restrict__ r1,
+                                   const T* __restrict__ r2, T x0, T x1,
+                                   T k0, T k1, double alpha, int oi, int oj,
+                                   T* d) {
+  T F[6];
+  const int ov = eval_fields<T, GRAD>(A, r1, r2, x0, x1, alpha, oi, oj, F);
+  const T f2 = T(A.f2), gH = T(A.gH);
+  const T om = sqrt_(f2 + gH * (k0 * k0 + k1 * k1));
+  const T inv = T(1) / om;
+  d[0] = F[0] + gH * k0 * inv;
+  d[1] = F[1] + gH * k1 * inv;
+  d[2] = -(F[2] * k0 + F[4] * k1);
+  d[3] = -(F[3] * k0 + F[5] * k1);
+  return ov;
+}
+
+template <typename T, bool GRAD, int STEPPER>
+__global__ void __launch_bounds__(256) march_kernel(MarchArgs<T> A) {
+  const long long pkt = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (pkt >= A.np) return;  // ragged last block
+  const T* __restrict__ r1 = A.p1 + pkt * A.sp;
+  const T* __restrict__ r2 = A.p2 + pkt * A.sp;
+  T x0 = A.xk[pkt], x1 = A.xk[A.np + pkt];
+  T k0 = A.xk[2 * A.np + pkt], k1 = A.xk[3 * A.np + pkt];
+  const int oi = A.oi[pkt], oj = A.oj[pkt];
+  const T h = T(A.sub_dt);
+  const int n = A.nsub;
+  const double da = 1.0 / n;
+  int ovt = 0;  // the MAX over stages and substeps, not a sum
+
+  for (int i = 0; i < n; ++i) {
+    const double a0 = double(i) / n;
+    if (STEPPER == RK23) {
+      T d[4], e[4], g[4];
+      int o = rhs<T, GRAD>(A, r1, r2, x0, x1, k0, k1, a0, oi, oj, d);
+      const T hh = T(0.5) * h;
+      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + hh * d[0], x1 + hh * d[1],
+                              k0 + hh * d[2], k1 + hh * d[3],
+                              a0 + 0.5 * da, oi, oj, e));
+      const T hq = T(0.75) * h;
+      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + hq * e[0], x1 + hq * e[1],
+                              k0 + hq * e[2], k1 + hq * e[3],
+                              a0 + 0.75 * da, oi, oj, g));
+      const T c = h / T(9);
+      x0 = x0 + c * (T(2) * d[0] + T(3) * e[0] + T(4) * g[0]);
+      x1 = x1 + c * (T(2) * d[1] + T(3) * e[1] + T(4) * g[1]);
+      k0 = k0 + c * (T(2) * d[2] + T(3) * e[2] + T(4) * g[2]);
+      k1 = k1 + c * (T(2) * d[3] + T(3) * e[3] + T(4) * g[3]);
+      ovt = max(ovt, o);
+    } else if (STEPPER == RK4) {
+      T d[4], e[4], g[4], q[4];
+      int o = rhs<T, GRAD>(A, r1, r2, x0, x1, k0, k1, a0, oi, oj, d);
+      const T hh = T(0.5) * h;
+      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + hh * d[0], x1 + hh * d[1],
+                              k0 + hh * d[2], k1 + hh * d[3],
+                              a0 + 0.5 * da, oi, oj, e));
+      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + hh * e[0], x1 + hh * e[1],
+                              k0 + hh * e[2], k1 + hh * e[3],
+                              a0 + 0.5 * da, oi, oj, g));
+      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + h * g[0], x1 + h * g[1],
+                              k0 + h * g[2], k1 + h * g[3], a0 + da, oi, oj,
+                              q));
+      const T c = h / T(6);
+      x0 = x0 + c * (d[0] + T(2) * (e[0] + g[0]) + q[0]);
+      x1 = x1 + c * (d[1] + T(2) * (e[1] + g[1]) + q[1]);
+      k0 = k0 + c * (d[2] + T(2) * (e[2] + g[2]) + q[2]);
+      k1 = k1 + c * (d[3] + T(2) * (e[3] + g[3]) + q[3]);
+      ovt = max(ovt, o);
+    } else {  // SYMPLECTIC: Strang half drift, kick, half drift
+      const T f2 = T(A.f2), gH = T(A.gH);
+      T om = sqrt_(f2 + gH * (k0 * k0 + k1 * k1));
+      T cinv = T(0.5) * h * gH / om;
+      x0 = x0 + cinv * k0;
+      x1 = x1 + cinv * k1;
+      T F[6];
+      const int o = eval_fields<T, GRAD>(A, r1, r2, x0, x1, a0 + 0.5 * da,
+                                         oi, oj, F);
+      const T k0n = k0 - h * (F[2] * k0 + F[4] * k1);
+      const T k1n = k1 - h * (F[3] * k0 + F[5] * k1);
+      x0 = x0 + h * F[0];
+      x1 = x1 + h * F[1];
+      k0 = k0n;
+      k1 = k1n;
+      om = sqrt_(f2 + gH * (k0 * k0 + k1 * k1));
+      cinv = T(0.5) * h * gH / om;
+      x0 = x0 + cinv * k0;
+      x1 = x1 + cinv * k1;
+      ovt = max(ovt, o);
+    }
+  }
+  A.out[pkt] = x0;
+  A.out[A.np + pkt] = x1;
+  A.out[2 * A.np + pkt] = k0;
+  A.out[3 * A.np + pkt] = k1;
+  A.ov[pkt] = ovt;
+}
+
+template <typename T, bool GRAD>
+int launch_stepper(const MarchArgs<T>& A, int stepper, int threads,
+                   cudaStream_t stream) {
+  if (A.np == 0) return 0;
+  const unsigned blocks = (unsigned)((A.np + threads - 1) / threads);
+  switch (stepper) {
+    case RK23:
+      march_kernel<T, GRAD, RK23><<<blocks, threads, 0, stream>>>(A);
+      break;
+    case RK4:
+      march_kernel<T, GRAD, RK4><<<blocks, threads, 0, stream>>>(A);
+      break;
+    case SYMPLECTIC:
+      march_kernel<T, GRAD, SYMPLECTIC><<<blocks, threads, 0, stream>>>(A);
+      break;
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+// nf = 2: (u, v) windows, gradients from the interpolant's derivative;
+// nf = 6: (u, v, ux, uy, vx, vy) windows. stepper: 0 rk23, 1 rk4,
+// 2 symplectic. Returns cudaGetLastError() after the launch, or -1 for a
+// configuration with no kernel.
+template <typename T>
+int launch(const void* p1, const void* p2, long long sp, long long se,
+           const void* xk, const void* oi, const void* oj, void* out,
+           void* ov, long long np, double sub_dt, int nx, int ny,
+           double inv_dx, double inv_dy, double f2, double gH, int margin,
+           int nsub, int nf, int stepper, int threads, void* stream) {
+  MarchArgs<T> A;
+  A.p1 = (const T*)p1;
+  A.p2 = (const T*)p2;
+  A.sp = sp;
+  A.se = se;
+  A.xk = (const T*)xk;
+  A.oi = (const int*)oi;
+  A.oj = (const int*)oj;
+  A.out = (T*)out;
+  A.ov = (int*)ov;
+  A.np = np;
+  A.sub_dt = sub_dt;
+  A.nx = nx;
+  A.ny = ny;
+  A.inv_dx = inv_dx;
+  A.inv_dy = inv_dy;
+  A.f2 = f2;
+  A.gH = gH;
+  A.margin = margin;
+  A.nsub = nsub;
+  if (threads < 32 || threads > 256 || margin < 0 || nsub < 1) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nf == 2) return launch_stepper<T, true>(A, stepper, threads, s);
+  if (nf == 6) return launch_stepper<T, false>(A, stepper, threads, s);
+  return -1;
+}
+
+}  // namespace
+

@@ -1,0 +1,624 @@
+"""Fused wave-packet march: all packet substeps of one flow step in one
+kernel, fed by ONE window gather per packet per snapshot.
+
+Counterpart of swraytracing_tpu/ops/pallas_window.py. The reference
+sub-cycles each flow step with ode23, paying a 6x6 Lagrangian stencil
+gather per packet per stage (interpolate.m:12-50 via interpolate_U.m and
+qgsw_raytrace.m:149,258-268).
+
+Key observation: over ONE flow step a packet moves at most
+dt*(|U|+Cg)/dx cells — under the production CFL that is < 1 cell. So a
+stencil window gathered once per flow step, widened by a `margin` of
+cells on each side, contains every stencil node that any substage of
+that step can touch. The march then needs NO gathers at all:
+
+  per flow step:
+    build W  = cell windows of the new snapshot    (K, nx*ny), K = nf*SW^2
+    gather   pw = W[cell(x)] per packet, both snapshots
+    kernel   all n_substeps x stages in one launch: Lagrange weights,
+             margin shift, time blend, dispersion, RK/symplectic update
+
+Within-margin arithmetic is IDENTICAL to the reference stencil: the same
+6 Lagrange weights (Durran Ch. 6, interpolate.m:37-44) are placed at the
+packet's current cell inside the wider window; positions that drift past
+the margin are clamped to the nearest in-window stencil and counted in
+the `overflow` output (callers assert it stays zero; see required_margin).
+
+Two device kernels, hand-written CUDA under kernels/csrc, each with its
+plain PyTorch version beside its wrapper here:
+
+  march_cuda      (csrc/march.cuh)      plain: march_reference
+  transpose_cuda  (csrc/transpose.cu)  plain: transpose_reference
+
+`fused_march` and `window_transpose` are the differentiable entry points.
+They pick by the device of the tensor they are given: a CPU tensor goes
+to the plain version, a CUDA tensor to the kernel. Nothing falls back: on
+a CUDA tensor the kernel launches or the call raises.
+
+Layouts: packet windows are (K, Np), or (Np, K) gather rows when
+`tiles_transposed`. The CUDA kernel takes both through strides.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "MarchSpec",
+    "required_margin",
+    "max_margin",
+    "build_margin_windows",
+    "build_gather_windows",
+    "packet_cells",
+    "gather_packet_windows",
+    "march_reference",
+    "march_cuda",
+    "fused_march",
+    "transpose_reference",
+    "transpose_cuda",
+    "window_transpose",
+]
+
+_STEPPERS = ("rk23", "rk4", "symplectic")
+
+
+class MarchSpec(NamedTuple):
+    """Static configuration of the fused march (hashable)."""
+
+    nx: int
+    ny: int
+    dx: float
+    dy: float
+    f: float
+    Cg: float
+    n_substeps: int = 4
+    stepper: str = "rk23"          # 'rk23' | 'rk4' | 'symplectic'
+    order: int = 2                 # Lagrange stencil half-width (Iord)
+    margin: int = 1                # drift allowance, cells per flow step
+    nf: int = 6                    # fields: u, v, ux, uy, vx, vy
+    # Threads (= packets) per CUDA block of the march kernel. A tuning
+    # value only: the kernel masks its ragged last block itself, so the
+    # packet count need not be a multiple of it.
+    block: int = 128
+    tiles_transposed: bool = False # pw passed as (Np, K) gather rows
+    # Windows carry only (u, v) (nf=2); the march evaluates the
+    # velocity-gradient tensor by DIFFERENTIATING the Lagrange
+    # interpolant (w'_i(fx) w_j(fy) / dx) instead of interpolating
+    # spectrally differentiated grids (grid_U.m:1-18). 3x smaller windows;
+    # the accuracy cost is 5th order in dx.
+    grad_from_interp: bool = False
+    # Both snapshots' packet windows arrive in ONE gathered array,
+    # stacked on the K axis ((2K, Np), or (Np, 2K) tiles_transposed).
+    # fused_march's pw2 argument is then a dummy.
+    combined_gather: bool = False
+    # One-kernel window build. Not available yet: build_gather_windows
+    # raises NotImplementedError when it is set.
+    fused_build: bool = False
+
+    @property
+    def S(self) -> int:
+        return 2 * self.order + 2
+
+    @property
+    def SW(self) -> int:
+        return self.S + 2 * self.margin
+
+    @property
+    def K(self) -> int:
+        return self.nf * self.SW * self.SW
+
+
+def required_margin(dt: float, u_max: float, Cg: float, dx: float,
+                    headroom: float = 3.0, nx: int | None = None,
+                    order: int = 2) -> int:
+    """Margin (cells) covering the worst-case packet drift over one flow
+    step: |dx/dt| <= |U| + |Cg_group| <= u_max + Cg (group speed of the
+    SW dispersion is bounded by Cg). `headroom` scales u_max because the
+    flow can strengthen past its initial maximum during the run; the
+    march's overflow counter catches violations at runtime.
+
+    With `nx` given, the margin is capped so the window (SW = 2*order+2
+    + 2*margin) never exceeds the periodic grid. A capped margin that
+    proves too small surfaces through the overflow counter."""
+    m = max(1, int(np.ceil(dt * (headroom * u_max + Cg) / dx)))
+    if nx is not None:
+        m = min(m, max_margin(nx, order))
+    return m
+
+
+def max_margin(nx: int, order: int = 2) -> int:
+    """Largest margin whose window still fits the periodic grid."""
+    return max(1, (nx - (2 * order + 2)) // 2)
+
+
+# ---------------------------------------------------------------------------
+# Window build + gather
+# ---------------------------------------------------------------------------
+
+def build_margin_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
+    """(nf, nx, ny) fields -> (K, nx*ny) cell-window array W:
+    W[(f*SW + sx)*SW + sy, i*ny + j] = F[f, i + sx - (order+margin),
+    j + sy - (order+margin)] (periodic). Rows are shifted flattened
+    copies of the fields, written by one strided copy."""
+    F = F[:spec.nf]  # grad_from_interp (nf=2) keeps only (u, v)
+    nf, nx, ny = F.shape
+    SW = spec.SW
+    lo = spec.order + spec.margin
+    hi = spec.order + 1 + spec.margin
+    if lo > min(nx, ny) or hi > min(nx, ny):
+        raise ValueError(
+            f"march window (margin={spec.margin}, SW={SW}) exceeds the "
+            f"{nx}x{ny} periodic grid; cap the margin with "
+            "required_margin(..., nx=) / max_margin")
+    Fp = torch.cat([F[:, :, ny - lo:], F, F[:, :, :hi]], dim=2)
+    Fp = torch.cat([Fp[:, nx - lo:], Fp, Fp[:, :hi]], dim=1)
+    # view [f, sx, sy, i, j] = Fp[f, sx + i, sy + j]
+    shifted = Fp.unfold(1, nx, 1).unfold(2, ny, 1)
+    return shifted.reshape(nf * SW * SW, nx * ny)
+
+
+def build_gather_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
+    """Cell-window array in the layout gather_packet_windows expects:
+    (K, ncells) when tiles_transposed=False, else (ncells, K) for
+    contiguous row gathers (through window_transpose: the transpose
+    kernel on a CUDA tensor, for any ncells)."""
+    if spec.fused_build:
+        raise NotImplementedError(
+            "the one-kernel window build (MarchSpec.fused_build) is not "
+            "ported yet: ROADMAP item B3")
+    W = build_margin_windows(F, spec)
+    if not spec.tiles_transposed:
+        return W
+    return window_transpose(W)
+
+
+def packet_cells(x: torch.Tensor, y: torch.Tensor, spec: MarchSpec):
+    """Origin cell of each packet: (oi, oj) int32 in [0, n)."""
+    xl = torch.remainder(x / spec.dx, spec.nx)
+    yl = torch.remainder(y / spec.dy, spec.ny)
+    oi = torch.floor(xl).to(torch.int32)
+    oj = torch.floor(yl).to(torch.int32)
+    oi = torch.where(oi >= spec.nx, oi - spec.nx, oi)
+    oj = torch.where(oj >= spec.ny, oj - spec.ny, oj)
+    return oi, oj
+
+
+def gather_packet_windows(W: torch.Tensor, oi, oj, spec: MarchSpec):
+    """One row (or column) gather per packet: W -> pw.
+
+    tiles_transposed=False: W is (K, ncells); gathers columns -> (K, Np).
+    tiles_transposed=True: W is (ncells, K); gathers rows -> (Np, K)."""
+    starts = oi.to(torch.int64) * spec.ny + oj
+    if spec.tiles_transposed:
+        return W.index_select(0, starts)      # (Np, K)
+    return W.index_select(1, starts)          # (K, Np)
+
+
+# ---------------------------------------------------------------------------
+# Shared march arithmetic (the plain version of the march kernel;
+# csrc/march.cuh computes the same thing, thread per packet)
+# ---------------------------------------------------------------------------
+
+def _lagrange_denominators(order: int):
+    offs = list(range(-order, order + 2))
+    denom = []
+    for i in offs:
+        d = 1.0
+        for j in offs:
+            if j != i:
+                d *= (i - j)
+        denom.append(d)
+    return offs, denom
+
+
+def _lagrange_ws(fr: torch.Tensor, order: int):
+    """S Lagrange basis weights at fractional position fr (B,) in [0,1)
+    for nodes -order..order+1 (interpolate.m:33-44, sign-correct form).
+    The denominators are constants; the products multiply by their
+    reciprocals."""
+    offs, denom = _lagrange_denominators(order)
+    a = [fr - o for o in offs]
+    ws = []
+    for idx in range(len(offs)):
+        p = None
+        for j in range(len(offs)):
+            if j == idx:
+                continue
+            p = a[j] if p is None else p * a[j]
+        ws.append(p * (1.0 / denom[idx]))
+    return ws
+
+
+def _lagrange_dws(fr: torch.Tensor, order: int):
+    """d/dfr of the S Lagrange basis weights (exact — the basis is a
+    degree-(S-1) polynomial): L_i'(fr) = sum_m Pi_{j != i,m}(fr - o_j)
+    / denom_i. The physical derivative needs a further 1/dx scale at the
+    call site."""
+    offs, denom = _lagrange_denominators(order)
+    a = [fr - o for o in offs]
+    dws = []
+    for idx in range(len(offs)):
+        s = None
+        for m in range(len(offs)):
+            if m == idx:
+                continue
+            p = None
+            for j in range(len(offs)):
+                if j == idx or j == m:
+                    continue
+                p = a[j] if p is None else p * a[j]
+            if p is None:  # order 0: two nodes, constant derivative
+                p = torch.ones_like(fr)
+            s = p if s is None else s + p
+        dws.append(s * (1.0 / denom[idx]))
+    return dws
+
+
+def _extended_weights(ws, d: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
+    """Place the S stencil weights into the SW-wide window at integer
+    shift d (B,) in [-margin, margin]: row p of the result holds
+    ws[p - d - margin] (zero outside). Returns (SW, B)."""
+    SW, m = spec.SW, spec.margin
+    pio = torch.arange(SW, dtype=torch.int32, device=d.device)[:, None]
+    t = pio - (d + m)[None, :]
+    zero = torch.zeros((), dtype=ws[0].dtype, device=d.device)
+    out = torch.zeros((SW, d.shape[0]), dtype=ws[0].dtype, device=d.device)
+    for s in range(len(ws)):
+        out = out + torch.where(t == s, ws[s][None, :], zero)
+    return out
+
+
+def _eval_fields(pw1, pw2, x0, x1, alpha: float, oi, oj, spec: MarchSpec):
+    """Interpolate the 6 time-blended fields at packet positions from
+    the margin windows. pw*: (nf, SW, SW, B); returns ((6, B), ov)
+    where ov (B,) int32 is the margin excess (0 when in-window)."""
+    nx, ny, m = spec.nx, spec.ny, spec.margin
+    xl = torch.remainder(x0 * (1.0 / spec.dx), nx)
+    yl = torch.remainder(x1 * (1.0 / spec.dy), ny)
+    i0f = torch.floor(xl)
+    j0f = torch.floor(yl)
+    fx = xl - i0f
+    fy = yl - j0f
+    i0 = i0f.to(torch.int32)
+    j0 = j0f.to(torch.int32)
+    i0 = torch.where(i0 >= nx, i0 - nx, i0)   # floor(mod) fp edge
+    j0 = torch.where(j0 >= ny, j0 - ny, j0)
+    di = i0 - oi
+    di = torch.where(di > nx // 2, di - nx, di)
+    di = torch.where(di < -(nx // 2), di + nx, di)
+    dj = j0 - oj
+    dj = torch.where(dj > ny // 2, dj - ny, dj)
+    dj = torch.where(dj < -(ny // 2), dj + ny, dj)
+    ov = torch.clamp(torch.maximum(di.abs(), dj.abs()) - m, min=0)
+    di = torch.clamp(di, -m, m)
+    dj = torch.clamp(dj, -m, m)
+    wex = _extended_weights(_lagrange_ws(fx, spec.order), di, spec)
+    wey = _extended_weights(_lagrange_ws(fy, spec.order), dj, spec)
+    v = (1.0 - alpha) * pw1 + alpha * pw2             # blend
+    # SEPARABLE contraction: the 2-D stencil weight is wex (x) wey, so
+    # contract the y axis once per field, then finish with SW-long x
+    # contractions (y first, then x: the kernel keeps this order).
+    ty = (v * wey[None, None, :, :]).sum(2)           # (nf, SW, B)
+    if not spec.grad_from_interp:
+        vals = (ty * wex[None, :, :]).sum(1)          # (nf, B)
+        return vals, ov
+    # nf=2 windows (u, v): the velocity-gradient tensor comes from the
+    # DERIVATIVE of the Lagrange interpolant.
+    dwex = _extended_weights(_lagrange_dws(fx, spec.order), di, spec)
+    dwey = _extended_weights(_lagrange_dws(fy, spec.order), dj, spec)
+    tdy = (v * dwey[None, None, :, :]).sum(2)         # (nf, SW, B)
+    u = (ty[0] * wex).sum(0)
+    vv = (ty[1] * wex).sum(0)
+    ux = (ty[0] * dwex).sum(0) * (1.0 / spec.dx)
+    uy = (tdy[0] * wex).sum(0) * (1.0 / spec.dy)
+    vx = (ty[1] * dwex).sum(0) * (1.0 / spec.dx)
+    vy = (tdy[1] * wex).sum(0) * (1.0 / spec.dy)
+    return torch.stack([u, vv, ux, uy, vx, vy]), ov
+
+
+def _march_core(pw1, pw2, x0, x1, k0, k1, oi, oj, sub_dt, spec: MarchSpec):
+    """All n_substeps of one flow step. pw*: (nf, SW, SW, B); sub_dt is
+    the substep length (dt_flow / n_substeps; 0 freezes packets), a
+    0-dim tensor of the packets' dtype. The flow blend fraction ramps
+    alpha = (i + stage)/n over the step, exactly the reference's
+    interpolate_U convention (interpolate_U.m:19-23). Steppers: rk23 =
+    Bogacki-Shampine stages of MATLAB's ode23 (qgsw_raytrace.m:149),
+    rk4, symplectic = Strang phi1/phi2/phi1 (ode_symplectic.m:33-37)."""
+    n = spec.n_substeps
+    gH = spec.Cg ** 2
+    f2 = spec.f ** 2
+    h = sub_dt
+    ov_tot = torch.zeros(x0.shape, dtype=torch.int32, device=x0.device)
+
+    def rhs(xx0, xx1, kk0, kk1, alpha):
+        F, ov = _eval_fields(pw1, pw2, xx0, xx1, alpha, oi, oj, spec)
+        om = torch.sqrt(f2 + gH * (kk0 * kk0 + kk1 * kk1))
+        inv = 1.0 / om
+        return (F[0] + gH * kk0 * inv, F[1] + gH * kk1 * inv,
+                -(F[2] * kk0 + F[4] * kk1), -(F[3] * kk0 + F[5] * kk1),
+                ov)
+
+    for i in range(n):
+        a0 = i / n
+        da = 1.0 / n
+        if spec.stepper == "rk23":
+            d = rhs(x0, x1, k0, k1, a0)
+            e = rhs(x0 + 0.5 * h * d[0], x1 + 0.5 * h * d[1],
+                    k0 + 0.5 * h * d[2], k1 + 0.5 * h * d[3],
+                    a0 + 0.5 * da)
+            g = rhs(x0 + 0.75 * h * e[0], x1 + 0.75 * h * e[1],
+                    k0 + 0.75 * h * e[2], k1 + 0.75 * h * e[3],
+                    a0 + 0.75 * da)
+            c = h / 9.0
+            x0 = x0 + c * (2.0 * d[0] + 3.0 * e[0] + 4.0 * g[0])
+            x1 = x1 + c * (2.0 * d[1] + 3.0 * e[1] + 4.0 * g[1])
+            k0 = k0 + c * (2.0 * d[2] + 3.0 * e[2] + 4.0 * g[2])
+            k1 = k1 + c * (2.0 * d[3] + 3.0 * e[3] + 4.0 * g[3])
+            ov_tot = torch.maximum(
+                ov_tot, torch.maximum(d[4], torch.maximum(e[4], g[4])))
+        elif spec.stepper == "rk4":
+            d = rhs(x0, x1, k0, k1, a0)
+            e = rhs(x0 + 0.5 * h * d[0], x1 + 0.5 * h * d[1],
+                    k0 + 0.5 * h * d[2], k1 + 0.5 * h * d[3],
+                    a0 + 0.5 * da)
+            g = rhs(x0 + 0.5 * h * e[0], x1 + 0.5 * h * e[1],
+                    k0 + 0.5 * h * e[2], k1 + 0.5 * h * e[3],
+                    a0 + 0.5 * da)
+            q = rhs(x0 + h * g[0], x1 + h * g[1],
+                    k0 + h * g[2], k1 + h * g[3], a0 + da)
+            c = h / 6.0
+            x0 = x0 + c * (d[0] + 2.0 * (e[0] + g[0]) + q[0])
+            x1 = x1 + c * (d[1] + 2.0 * (e[1] + g[1]) + q[1])
+            k0 = k0 + c * (d[2] + 2.0 * (e[2] + g[2]) + q[2])
+            k1 = k1 + c * (d[3] + 2.0 * (e[3] + g[3]) + q[3])
+            ov_tot = torch.maximum(
+                ov_tot, torch.maximum(torch.maximum(d[4], e[4]),
+                                      torch.maximum(g[4], q[4])))
+        elif spec.stepper == "symplectic":
+            om = torch.sqrt(f2 + gH * (k0 * k0 + k1 * k1))
+            cinv = 0.5 * h * gH / om
+            x0 = x0 + cinv * k0
+            x1 = x1 + cinv * k1
+            F, ov = _eval_fields(pw1, pw2, x0, x1, a0 + 0.5 * da,
+                                 oi, oj, spec)
+            k0n = k0 - h * (F[2] * k0 + F[4] * k1)
+            k1n = k1 - h * (F[3] * k0 + F[5] * k1)
+            x0 = x0 + h * F[0]
+            x1 = x1 + h * F[1]
+            k0, k1 = k0n, k1n
+            om = torch.sqrt(f2 + gH * (k0 * k0 + k1 * k1))
+            cinv = 0.5 * h * gH / om
+            x0 = x0 + cinv * k0
+            x1 = x1 + cinv * k1
+            ov_tot = torch.maximum(ov_tot, ov)
+        else:
+            raise ValueError(f"unknown stepper {spec.stepper!r}")
+    return x0, x1, k0, k1, ov_tot
+
+
+def _check_spec(spec: MarchSpec):
+    if spec.grad_from_interp != (spec.nf == 2) or spec.nf not in (2, 6):
+        raise ValueError(
+            "the march takes nf=6 windows (u, v and the four gradients) or, "
+            "with grad_from_interp, nf=2 windows (u, v); got "
+            f"nf={spec.nf}, grad_from_interp={spec.grad_from_interp}")
+    if spec.stepper not in _STEPPERS:
+        raise ValueError(f"unknown stepper {spec.stepper!r}")
+    if spec.order != 2:
+        raise ValueError(f"the march supports order 2 only, got {spec.order}")
+
+
+def march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
+    """Plain PyTorch fused march over all packets at once (any device):
+    the plain version of march_cuda, the CPU path, and what fused_march
+    differentiates. pw*: (K, Np) (or (Np, K) when spec.tiles_transposed);
+    xk (4, Np) = [x, y, kx, ky]; sub_dt a Python float or 0-dim tensor;
+    returns (xk_out (4, Np), overflow (Np,) int32).
+
+    combined_gather: pw1 carries BOTH snapshots stacked on the K axis
+    ((2K, Np) / (Np, 2K)); pw2 is ignored (pass any tensor)."""
+    _check_spec(spec)
+    if spec.combined_gather:
+        w = pw1.t() if spec.tiles_transposed else pw1          # (2K, Np)
+        p = w.reshape(2, spec.nf, spec.SW, spec.SW, -1)
+        p1, p2 = p[0], p[1]
+    else:
+        if spec.tiles_transposed:
+            pw1 = pw1.t()
+            pw2 = pw2.t()
+        p1 = pw1.reshape(spec.nf, spec.SW, spec.SW, -1)
+        p2 = pw2.reshape(spec.nf, spec.SW, spec.SW, -1)
+    h = torch.as_tensor(sub_dt, dtype=xk.dtype, device=xk.device)
+    r = _march_core(p1, p2, xk[0], xk[1], xk[2], xk[3], oi, oj, h, spec)
+    return torch.stack(r[:4]), r[4]
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers (kernels/csrc/march.cuh, kernels/csrc/transpose.cu)
+# ---------------------------------------------------------------------------
+
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+
+def _require_cuda(name: str, key: str, t: torch.Tensor, dtype, shape):
+    """What a kernel wrapper takes: a contiguous CUDA tensor of this dtype
+    and shape. Anything else raises; nothing is converted on the way."""
+    if not t.is_cuda:
+        raise ValueError(
+            f"{name} launches a CUDA kernel: `{key}` lies on {t.device}, "
+            "not on a CUDA device")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: `{key}` must be contiguous")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: `{key}` must be {dtype} {tuple(shape)}; "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def march_cuda(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
+    """The fused march on the card (kernels/csrc/march.cuh): arguments and
+    results as march_reference, CUDA tensors only. One thread per packet;
+    `sub_dt` is passed to the kernel as a scalar. Launches on the current
+    stream and does not synchronise. Counts its launches in
+    `march_cuda.launches`."""
+    from .. import kernels
+
+    _check_spec(spec)
+    if xk.dtype not in _DTYPE_CODE:
+        raise ValueError(f"march_cuda: xk must be float32 or float64, got "
+                         f"{xk.dtype}")
+    if not (32 <= spec.block <= 256 and spec.block % 32 == 0):
+        raise ValueError("MarchSpec.block must be a multiple of 32 in "
+                         f"[32, 256], got {spec.block}")
+    Np = xk.shape[-1]
+    K = spec.K
+    rows = 2 * K if spec.combined_gather else K
+    pw_shape = (Np, rows) if spec.tiles_transposed else (rows, Np)
+    _require_cuda("march_cuda", "xk", xk, xk.dtype, (4, Np))
+    _require_cuda("march_cuda", "oi", oi, torch.int32, (Np,))
+    _require_cuda("march_cuda", "oj", oj, torch.int32, (Np,))
+    _require_cuda("march_cuda", "pw1", pw1, xk.dtype, pw_shape)
+    if not spec.combined_gather:
+        _require_cuda("march_cuda", "pw2", pw2, xk.dtype, pw_shape)
+
+    # Strides in elements: from one packet to the next, and from one
+    # window component to the next. Both layouts are the same kernel.
+    if spec.tiles_transposed:
+        s_packet, s_elem = rows, 1
+    else:
+        s_packet, s_elem = 1, Np
+    p1 = pw1.data_ptr()
+    if spec.combined_gather:
+        p2 = p1 + K * s_elem * pw1.element_size()
+    else:
+        p2 = pw2.data_ptr()
+
+    out = torch.empty_like(xk)
+    ov = torch.empty((Np,), dtype=torch.int32, device=xk.device)
+    if Np == 0:  # nothing to launch
+        return out, ov
+    sub_dt = float(sub_dt)
+    lib = kernels.load()
+    entry = lib.swr_march_f32 if xk.dtype == torch.float32 \
+        else lib.swr_march_f64
+    with torch.cuda.device(xk.device):
+        err = entry(
+            p1, p2, s_packet, s_elem,
+            xk.data_ptr(), oi.data_ptr(), oj.data_ptr(),
+            out.data_ptr(), ov.data_ptr(), Np, sub_dt,
+            spec.nx, spec.ny, 1.0 / spec.dx, 1.0 / spec.dy,
+            spec.f ** 2, spec.Cg ** 2, spec.margin, spec.n_substeps,
+            spec.nf, _STEPPERS.index(spec.stepper), spec.block,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "swr_march")
+    march_cuda.launches += 1
+    return out, ov
+
+
+march_cuda.launches = 0
+
+
+def transpose_reference(W: torch.Tensor) -> torch.Tensor:
+    """Plain version of transpose_cuda: (A, B) -> contiguous (B, A)."""
+    return W.t().contiguous()
+
+
+def transpose_cuda(W: torch.Tensor) -> torch.Tensor:
+    """Tiled transpose on the card (kernels/csrc/transpose.cu): contiguous
+    (A, B) float32/float64 CUDA tensor -> contiguous (B, A), any A and B.
+    Launches on the current stream and does not synchronise. Counts its
+    launches in `transpose_cuda.launches`."""
+    from .. import kernels
+
+    if W.dim() != 2 or W.dtype not in _DTYPE_CODE:
+        raise ValueError("transpose_cuda takes a 2-D float32/float64 tensor; "
+                         f"got {W.dtype} {tuple(W.shape)}")
+    _require_cuda("transpose_cuda", "W", W, W.dtype, W.shape)
+    A, B = W.shape
+    out = torch.empty((B, A), dtype=W.dtype, device=W.device)
+    if A == 0 or B == 0:
+        return out
+    lib = kernels.load()
+    with torch.cuda.device(W.device):
+        err = lib.swr_transpose(
+            _DTYPE_CODE[W.dtype], W.data_ptr(), out.data_ptr(), A, B,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "swr_transpose")
+    transpose_cuda.launches += 1
+    return out
+
+
+transpose_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Differentiable entry points
+# ---------------------------------------------------------------------------
+
+class _WindowTranspose(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, W):
+        if W.is_cuda:
+            return transpose_cuda(W.contiguous())
+        return transpose_reference(W)
+
+    @staticmethod
+    def backward(ctx, ct):
+        # a transpose's cotangent is the transpose of the cotangent
+        if ct.is_cuda:
+            return transpose_cuda(ct.contiguous())
+        return transpose_reference(ct)
+
+
+def window_transpose(W: torch.Tensor) -> torch.Tensor:
+    """Differentiable (A, B) -> (B, A) contiguous transpose: the transpose
+    kernel on a CUDA tensor, transpose_reference on a CPU tensor, forward
+    and backward."""
+    return _WindowTranspose.apply(W)
+
+
+class _FusedMarch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pw1, pw2, xk, oi, oj, sub_dt, spec):
+        if xk.is_cuda:
+            out, ov = march_cuda(pw1, pw2, xk, oi, oj, sub_dt, spec)
+        else:
+            out, ov = march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec)
+        dt_is_tensor = isinstance(sub_dt, torch.Tensor)
+        ctx.save_for_backward(pw1, pw2, xk, oi, oj,
+                              *([sub_dt] if dt_is_tensor else []))
+        ctx.sub_dt = None if dt_is_tensor else sub_dt
+        ctx.spec = spec
+        ctx.mark_non_differentiable(ov)
+        return out, ov
+
+    @staticmethod
+    def backward(ctx, ct_xk, _ct_ov):
+        pw1, pw2, xk, oi, oj, *rest = ctx.saved_tensors
+        sub_dt = rest[0] if rest else ctx.sub_dt
+        needs = ctx.needs_input_grad
+        args = [pw1, pw2, xk, sub_dt]
+        wanted = [needs[0], needs[1], needs[2], needs[5]]
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(True) if w else a
+                      for a, w in zip(args, wanted)]
+            out, _ = march_reference(leaves[0], leaves[1], leaves[2], oi, oj,
+                                     leaves[3], ctx.spec)
+            diff = [a for a, w in zip(leaves, wanted) if w]
+            grads = iter(torch.autograd.grad(out, diff, ct_xk,
+                                             allow_unused=True))
+        g = [next(grads) if w else None for w in wanted]
+        return g[0], g[1], g[2], None, None, g[3], None
+
+
+def fused_march(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
+    """Differentiable fused march. Forward: the CUDA kernel on CUDA
+    tensors, march_reference on CPU tensors. Backward: always
+    differentiates march_reference on the saved inputs (same arithmetic;
+    the cotangent w.r.t. the packet windows is dense per-packet weight
+    outer products — no scatter), giving gradients for pw1, pw2, xk and
+    sub_dt (when it is a tensor), none for oi, oj. Returns
+    (xk_out (4, Np), overflow (Np,) int32)."""
+    return _FusedMarch.apply(pw1, pw2, xk, oi, oj, sub_dt, spec)

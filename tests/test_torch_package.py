@@ -1,0 +1,121 @@
+"""Package-level contracts of swraytracing_torch: what importing it pulls
+in, and that nothing runs on the CPU unless the caller asks for it."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from swraytracing_torch import kernels
+from swraytracing_torch.models.coupled2 import Coupled2Config, setup_coupled2
+from swraytracing_torch.models.qg2 import initial_q2_ring
+from swraytracing_torch.ops.grid import SpectralGrid, resolve_device
+from swraytracing_torch.ops import march_window as mw
+from swraytracing_torch import convert
+
+import torch_parity  # noqa: F401  (one torch thread per worker)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _run(code):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("module", [
+    "swraytracing_torch", "swraytracing_torch.convert",
+    "swraytracing_torch.kernels", "swraytracing_torch.models.coupled2",
+    "swraytracing_torch.ops.march_window", "chip_smoke"])
+def test_import_pulls_in_no_jax(module):
+    """Importing the port (and chip_smoke, import only) loads neither jax,
+    flax nor the JAX package, and builds or loads no kernel."""
+    r = _run(
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'swraytracing_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "from swraytracing_torch import kernels\n"
+        "assert kernels._lib is None\n"
+        "print('clean')\n")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "clean"
+
+
+def test_sources_name_no_jax_import():
+    for path in [*ROOT.glob("swraytracing_torch/**/*.py"),
+                 ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            assert not stripped.startswith(
+                ("import jax", "from jax", "import flax", "from flax",
+                 "import swraytracing_tpu", "from swraytracing_tpu")), \
+                (path, line)
+
+
+def test_kernel_sources_ship_with_the_package():
+    names = [s.name for s in kernels.sources()]
+    assert names == ["march_f32.cu", "march_f64.cu", "transpose.cu"]
+    csrc = kernels.sources()[0].parent
+    for s in kernels.sources():
+        assert 'extern "C"' in s.read_text()
+    assert "__global__" in (csrc / "march.cuh").read_text()
+    assert "__global__" in (csrc / "transpose.cu").read_text()
+    assert "--use_fast_math" not in kernels.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def test_no_device_argument_means_cuda_or_raise():
+    """This machine has no CUDA device: entry points that are not told
+    device='cpu' raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a CUDA device")
+    cfg = Coupled2Config(nx=16, n_packets=8, window_min_np=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        setup_coupled2(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initial_q2_ring(5, SpectralGrid.square(16, 20.0), 0.4, 3.0, k_min=2,
+                        k_max=5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.carry_from_numpy({})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cuda_kernels_unreachable_from_cpu_tensors():
+    """On CPU tensors the entry points run the plain versions; the kernel
+    wrappers themselves refuse, and nothing is built or counted."""
+    spec = mw.MarchSpec(nx=16, ny=16, dx=1.0, dy=1.0, f=3.0, Cg=1.0,
+                        n_substeps=1)
+    g = torch.Generator().manual_seed(0)
+    F = torch.randn(6, 16, 16, dtype=torch.float64, generator=g)
+    x = 16 * torch.rand(2, 10, dtype=torch.float64, generator=g)
+    k = torch.randn(2, 10, dtype=torch.float64, generator=g)
+    W = mw.build_gather_windows(F, spec)
+    oi, oj = mw.packet_cells(x[0], x[1], spec)
+    pw = mw.gather_packet_windows(W, oi, oj, spec)
+    xk = torch.cat([x, k])
+    out, ov = mw.fused_march(pw, pw, xk, oi, oj, 0.01, spec)
+    ref, _ = mw.march_reference(pw, pw, xk, oi, oj, 0.01, spec)
+    assert torch.equal(out, ref)
+    assert torch.equal(mw.window_transpose(W), W.t().contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        mw.march_cuda(pw, pw, xk, oi, oj, 0.01, spec)
+    with pytest.raises(ValueError, match="CUDA"):
+        mw.transpose_cuda(W)
+    assert mw.march_cuda.launches == 0 and mw.transpose_cuda.launches == 0
+    assert kernels._lib is None
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a CUDA device")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert r.stdout.strip() == ""          # no result line of any kind
+    assert "no CUDA device" in r.stderr
