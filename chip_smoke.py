@@ -2,20 +2,29 @@
 
     python3 chip_smoke.py
 
-builds the two CUDA kernels of swraytracing_torch from the sources in this
-checkout, holds each against its plain PyTorch version on the card, runs
-the whole two-layer coupled path once on the card and once on the CPU at
-a small size and compares them, then drives the main path at full width:
-the two-layer coupled model at 512^2 with 2^20 wave packets, rk23 with 2
-substeps, uv windows, combined gather, transposed tiles, float32. Each
-phase prints one JSON line. Any failed phase raises, so the exit code is
-non-zero; without a CUDA device the script fails at once and runs nothing
-on the CPU in its place.
+builds the four CUDA kernels of swraytracing_torch from the sources in this
+checkout (march, transpose, build_windows, march_rays), holds each against
+its plain PyTorch version on the card, runs every path once on the card and
+once on the CPU at a small size and compares them, then drives the three
+main paths at full width, each with the launch counts set to 0 just before
+it and read just after:
+
+  main_path      the two-layer coupled model at 512^2 with 2^20 wave
+                 packets, rk23 with 2 substeps, uv windows, combined gather,
+                 transposed tiles, float32 (march + transpose);
+  main_path_qg1  the one-layer coupled model at the same size with the
+                 one-kernel window build (march + build_windows);
+  frozen_path    2^20 packets marched 50 symplectic steps through a frozen
+                 512^2 one-layer snapshot in one launch (march_rays).
+
+Each phase prints one JSON line. Any failed phase raises, so the exit code
+is non-zero; without a CUDA device the script fails at once and runs
+nothing on the CPU in its place.
 
 Last lines of the output: a {"kernels": [...]} line (per kernel: its time
 at the main path's shapes, the least time the card could take for the same
 bytes and operations, the plain version's time, a library call's time
-where there is one, its launches on the main path, its error against the
+where there is one, its launches on the main paths, its error against the
 plain version), the card's name and power limit as nvidia-smi gives them,
 and {"ok": true, "device": {...}}. The `kernel_bounds` line before them
 holds what each bound was computed from (bytes, operations, shapes) and
@@ -23,6 +32,7 @@ the tolerances the errors were held to. The script takes no arguments.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -32,26 +42,45 @@ import numpy as np
 import torch
 
 from swraytracing_torch import kernels
-from swraytracing_torch.models import qg2
+from swraytracing_torch.models import qg, qg2
+from swraytracing_torch.models.coupled import (CoupledConfig,
+                                               run_coupled_chunk,
+                                               setup_coupled)
 from swraytracing_torch.models.coupled2 import (Coupled2Config,
                                                 run_coupled2_chunk,
                                                 setup_coupled2)
+from swraytracing_torch.models.dispersion import Dispersion
+from swraytracing_torch.models.fields import (GriddedFlow, flow_from_psi_grid,
+                                              flow_from_qk)
+from swraytracing_torch.models.frozen import raytrace_frozen, ring_ics
+from swraytracing_torch.ops import march_rays as mr
 from swraytracing_torch.ops import march_window as mw
+from swraytracing_torch.ops.grid import SpectralGrid
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 / float64 rates outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
-# The TPU kernels the two CUDA kernels replace (file:line of the
-# function that reaches pl.pallas_call).
+# The TPU kernels the CUDA kernels replace (file:line of the function
+# that reaches pl.pallas_call).
 REPLACES = {
     "march": "swraytracing_tpu/ops/pallas_window.py:622",
     "transpose": "swraytracing_tpu/ops/pallas_window.py:181",
+    "build_windows": "swraytracing_tpu/ops/pallas_window.py:246",
+    "march_rays": "swraytracing_tpu/ops/pallas_ray.py:80",
 }
 SOURCES = {
     "march": "swraytracing_torch/kernels/csrc/march.cuh",
     "transpose": "swraytracing_torch/kernels/csrc/transpose.cu",
+    "build_windows": "swraytracing_torch/kernels/csrc/build_windows.cu",
+    "march_rays": "swraytracing_torch/kernels/csrc/march_rays.cu",
+}
+WRAPPERS = {
+    "march": mw.march_cuda,
+    "transpose": mw.transpose_cuda,
+    "build_windows": mw.build_windows_cuda,
+    "march_rays": mr.march_rays_cuda,
 }
 
 # float32 tolerance of the march kernel against its plain version. Both do
@@ -64,6 +93,18 @@ SOURCES = {
 # tolerance too.
 F32_RTOL, F32_ATOL = 2e-5, 2e-6
 F64_ATOL = 1e-12
+
+# Tolerances of the frozen-flow march kernel against its plain version over
+# 50 steps. float64: the 1e-10 the JAX package holds its TPU kernel to
+# against its own plain version. float32: both sides round |x| < 8 (ulp
+# 4.8e-7) three times and |k| ~ 5..8 once per step, in a different order
+# (FMA contraction, the 36-term stencil sum, reciprocal denominators), so
+# the two states random-walk apart by a few 1e-6 over 50 steps and 10^6
+# packets; a stencil switch at a cell edge changes nothing to this
+# accuracy, because the interpolant is continuous through the nodes.
+RAYS_F32_ATOL = 2e-5
+RAYS_F64_ATOL = 1e-10
+RAYS_STEPS = 50
 
 # Timed chunks of packet_steps_per_save flow steps on the main path, after
 # two warm-up chunks.
@@ -97,8 +138,12 @@ def cuda_ms(fn, reps):
 
 
 def reset_launches():
-    mw.march_cuda.launches = 0
-    mw.transpose_cuda.launches = 0
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +159,18 @@ def phase_build():
     spills = sum(int(line.split(" bytes spill stores")[0].split()[-1])
                  for line in kernels.build_info["log"].splitlines()
                  if "bytes spill stores" in line)
-    # registers per kernel, keyed by the template arguments in the mangled
-    # name (scalar type f/d, gradient-from-interpolant, stepper)
-    names = [line.split("'")[1] for line in
-             kernels.build_info["log"].splitlines()
+    # registers per kernel, keyed by the kernel's name and template
+    # arguments as they stand in the mangled name (scalar type f/d, then
+    # for the march gradient-from-interpolant and stepper, for the ray
+    # march the order)
+    def kernel_name(symbol):
+        found = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)EEv", symbol)
+        return found.group(1) if found else symbol
+
+    names = [kernel_name(line.split("'")[1])
+             for line in kernels.build_info["log"].splitlines()
              if "Compiling entry function" in line]
-    by_kernel = {n.split("kernelI")[-1][:12]: r for n, r in zip(names, regs)}
+    by_kernel = dict(zip(names, regs))
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=kernels.build_info["seconds"],
          sources=[s.name for s in kernels.sources()],
@@ -177,6 +228,137 @@ def compare_march(inputs, sub_dt, spec, rtol, atol, label):
             f"{label}: max abs err {float(err.max()):.3e} exceeds "
             f"atol={atol} rtol={rtol} ({share:.2f}x)")
     return float(err.max()), share, int(ov.max())
+
+
+
+def check_build_windows(dev):
+    """K3 against its plain version and the two-pass route: exact."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    # square, non-square, and sides that no tile or block divides
+    grids = [(64, 64), (48, 80), (37, 53)]
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for nx, ny in grids:
+            F = torch.randn((6, nx, ny), dtype=dtype, device=dev, generator=g)
+            for nf in (2, 6):
+                for margin in (1, 2, 3):
+                    spec = mw.MarchSpec(
+                        nx=nx, ny=ny, dx=1.0, dy=1.0, f=3.0, Cg=1.0, nf=nf,
+                        grad_from_interp=nf == 2, margin=margin,
+                        tiles_transposed=True, fused_build=True)
+                    got = mw.build_windows_cuda(F, spec)
+                    torch.cuda.synchronize()
+                    label = f"build_windows {dtype} {nx}x{ny} nf={nf} m={margin}"
+                    if not (got.is_contiguous()
+                            and got.shape == (nx * ny, spec.K)):
+                        raise AssertionError(f"{label}: layout")
+                    if not torch.equal(got,
+                                       mw.build_windows_reference(F, spec)):
+                        raise AssertionError(f"{label}: differs from the "
+                                             "plain version")
+                    if not torch.equal(
+                            got, mw.build_margin_windows(F, spec).t()):
+                        raise AssertionError(f"{label}: differs from the "
+                                             "two-pass route")
+                    if not torch.equal(got,
+                                       mw.build_gather_windows(F, spec)):
+                        raise AssertionError(f"{label}: build_gather_windows "
+                                             "took another route")
+                    cases += 1
+    return {"cases": cases, "grids": grids, "margins": [1, 2, 3],
+            "nf": [2, 6], "exact": True, "dtypes": ["float32", "float64"]}
+
+
+def analytic_flow_fields(nx, dtype, dev):
+    """The six grids of a steady cellular flow (the flow of the JAX
+    package's own test of its ray-march kernel)."""
+    grid = SpectralGrid.square(nx)
+    X, Y = grid.meshgrid()
+    psi = 0.1 * (np.sin(X) * np.sin(Y) + 0.25 * np.cos(X) * np.cos(Y))
+    flow = flow_from_psi_grid(torch.as_tensor(psi, dtype=dtype, device=dev),
+                              grid)
+    return grid, flow.fields
+
+
+def compare_rays(got, want, atol, label):
+    """Kernel state (x, k) against the plain version's. Returns the max
+    abs error."""
+    worst = 0.0
+    for name, g, w in zip("xk", got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: kernel {name} is not finite")
+        err = float((g - w).abs().max())
+        if err > atol:
+            raise AssertionError(f"{label}: {name} max abs err {err:.3e} "
+                                 f"exceeds atol={atol}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_march_rays(dev):
+    """K4 against its plain version: orders 1-3, a ragged packet count,
+    packets planted on the mod/floor edges."""
+    nx, n_p = 64, 2 ** 16 + 37   # not a multiple of the block
+    L = 2.0 * np.pi
+    dx = L / nx
+    disp = Dispersion(f=3.0, Cg=1.0)
+    rng = np.random.default_rng(20240602)
+    xh = rng.uniform(0.0, L, (2, n_p))
+    ang = 2 * np.pi * np.arange(n_p) / n_p
+    kh = 8.0 * np.stack([np.cos(ang), np.sin(ang)])
+    # just below 0 (mod gives exactly nx), exactly L, one ulp either side
+    # of a cell edge
+    xh[:, 0] = [-1e-18, L]
+    xh[:, 1] = [L, -1e-18]
+    report = {}
+    for dtype, atol in ((torch.float64, RAYS_F64_ATOL),
+                        (torch.float32, RAYS_F32_ATOL)):
+        grid, fields = analytic_flow_fields(nx, dtype, dev)
+        x0 = torch.as_tensor(xh, dtype=dtype, device=dev)
+        k0 = torch.as_tensor(kh, dtype=dtype, device=dev)
+        # the neighbours of two cell edges in the working precision
+        for col, cells in ((2, 1.0), (3, 5.0)):
+            edge = torch.tensor(cells * dx, dtype=dtype, device=dev)
+            x0[0, col] = torch.nextafter(edge, torch.zeros_like(edge))
+            x0[1, col] = torch.nextafter(edge, 10.0 * torch.ones_like(edge))
+        worst = 0.0
+        for order in (1, 2, 3):
+            args = (fields, x0, k0, grid, disp, 0.005, RAYS_STEPS, order)
+            got = mr.march_rays_cuda(*args)
+            torch.cuda.synchronize()
+            worst = max(worst, compare_rays(
+                got, mr.march_rays_reference(*args), atol,
+                f"march_rays {dtype} order={order}"))
+        # no steps: the state comes back bit for bit
+        same = mr.march_rays_cuda(fields, x0, k0, grid, disp, 0.005, 0)
+        if not (torch.equal(same[0], x0) and torch.equal(same[1], k0)):
+            raise AssertionError(f"{dtype}: nsteps=0 is not the identity")
+        report[str(dtype)] = {"cases": 4, "max_abs_err": worst, "atol": atol,
+                              "share_of_tolerance": worst / atol}
+    # an order the library has no kernel for: the wrapper raises, and so
+    # does the C entry's -1
+    before = mr.march_rays_cuda.launches
+    try:
+        mr.march_rays_cuda(fields, x0, k0, grid, disp, 0.005, 1, order=4)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("march_rays_cuda accepted order=4")
+    err = kernels.load().swr_march_rays_f32(
+        fields.data_ptr(), x0.data_ptr(), k0.data_ptr(), x0.data_ptr(),
+        k0.data_ptr(), n_p, nx, nx, dx, dx, 0.005, 9.0, 1.0, 1, 4, 128,
+        torch.cuda.current_stream().cuda_stream)
+    try:
+        kernels.check(err, "swr_march_rays")
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("swr_march_rays_f32 launched order=4")
+    if mr.march_rays_cuda.launches != before:
+        raise AssertionError("a refused launch was counted")
+    report.update(n_packets=n_p, nx=nx, steps=RAYS_STEPS, orders=[1, 2, 3],
+                  unsupported_order_raises=True)
+    return report
 
 
 def phase_kernels_vs_plain(dev):
@@ -264,21 +446,22 @@ def phase_kernels_vs_plain(dev):
                 raise AssertionError(f"transpose differs at {shape} {dtype}")
     report["transpose"] = {"shapes": shapes, "exact": True,
                            "dtypes": ["float32", "float64"]}
+    report["build_windows"] = check_build_windows(dev)
+    report["march_rays"] = check_march_rays(dev)
     emit("kernels_vs_plain", n_packets=n_p, nx=nx, **report)
 
 
 # ---------------------------------------------------------------------------
-# the whole slice, card against CPU
+# every path, card against CPU
 # ---------------------------------------------------------------------------
 
-def phase_path_vs_cpu(dev):
-    cfg = Coupled2Config(nx=64, n_packets=4096, window_min_np=1,
-                         T_Fr_days=20.0, packet_delay_days=0.05,
-                         packet_steps_per_save=5)
+def coupled_card_vs_cpu(dev, cfg, setup, run_chunk):
+    """Two chunks of 5 flow steps of a coupled model in float64 on the card
+    and on the CPU, compared."""
     out = {}
     for name, device in (("cuda", dev), ("cpu", "cpu")):
-        s, carry = setup_coupled2(cfg, device=device, dtype=torch.float64)
-        carry, (px, pk, ts) = run_coupled2_chunk(carry, s, cfg, 2)
+        s, carry = setup(cfg, device=device, dtype=torch.float64)
+        carry, (px, pk, ts) = run_chunk(carry, s, cfg, 2)
         out[name] = (s, carry, px.cpu(), pk.cpu(), ts)
     (sg, cg, pxg, pkg, tsg), (sc, cc, pxc, pkc, tsc) = out["cuda"], out["cpu"]
     if sg.march != sc.march or sg.march is None:
@@ -294,33 +477,72 @@ def phase_path_vs_cpu(dev):
         raise AssertionError("overflow differs between card and CPU")
     if not float((pxc[-1] - pxc[0]).abs().max()) > 0:
         raise AssertionError("packets did not move in path_vs_cpu")
-    emit("path_vs_cpu", nx=cfg.nx, n_packets=cfg.n_packets, flow_steps=10,
-         max_abs_dx=float((pxg - pxc).abs().max()),
-         max_abs_dk=float((pkg - pkc).abs().max()),
-         max_rel_dqk=float((qg_ - qc_).abs().max() / qc_.abs().max()),
-         overflow=int(cg.overflow), margin=sg.march.margin)
+    return dict(nx=cfg.nx, n_packets=cfg.n_packets, flow_steps=10,
+                max_abs_dx=float((pxg - pxc).abs().max()),
+                max_abs_dk=float((pkg - pkc).abs().max()),
+                max_rel_dqk=float((qg_ - qc_).abs().max() / qc_.abs().max()),
+                overflow=int(cg.overflow), margin=sg.march.margin,
+                fused_build=sg.march.fused_build)
+
+
+def rays_card_vs_cpu(dev):
+    """march_rays on the card (the kernel) and on the CPU (the plain
+    version) through a frozen one-layer snapshot, float64."""
+    nx, n_p = 64, 4096
+    grid = SpectralGrid.square(nx)
+    disp = Dispersion(f=3.0, Cg=1.0)
+    qk = qg.initial_q_ring(146, grid, 0.4, 3.0, device="cpu",
+                           dtype=torch.float64)
+    fields = flow_from_qk(qk, grid, 3.0).fields
+    x0, k0 = ring_ics(n_p, 2.0, disp, device="cpu", dtype=torch.float64)
+    args = (grid, disp, 0.01, RAYS_STEPS)
+    xc, kc = mr.march_rays(fields, x0, k0, *args)
+    xg, kg = mr.march_rays(fields.to(dev), x0.to(dev), k0.to(dev), *args)
+    err = compare_rays((xg.cpu(), kg.cpu()), (xc, kc), RAYS_F64_ATOL,
+                       "march_rays card vs CPU")
+    if not float((xc - x0).abs().max()) > 1e-2:
+        raise AssertionError("packets did not move in rays_card_vs_cpu")
+    return dict(nx=nx, n_packets=n_p, steps=RAYS_STEPS, max_abs_err=err,
+                atol=RAYS_F64_ATOL)
+
+
+def phase_path_vs_cpu(dev):
+    small = dict(nx=64, n_packets=4096, window_min_np=1, T_Fr_days=20.0,
+                 packet_delay_days=0.05, packet_steps_per_save=5)
+    two = coupled_card_vs_cpu(dev, Coupled2Config(**small), setup_coupled2,
+                              run_coupled2_chunk)
+    before = mw.build_windows_cuda.launches
+    one = coupled_card_vs_cpu(
+        dev, CoupledConfig(march_fused_build=True, **small), setup_coupled,
+        run_coupled_chunk)
+    if mw.build_windows_cuda.launches != before + 11:
+        raise AssertionError("the one-layer path did not build its windows "
+                             "with the build kernel")
+    emit("path_vs_cpu", **two, one_layer=one, march_rays=rays_card_vs_cpu(dev))
 
 
 # ---------------------------------------------------------------------------
-# the main path at full width
+# the main paths at full width
 # ---------------------------------------------------------------------------
 
-def main_config():
-    return Coupled2Config(nx=512, n_packets=1_048_576, T_Fr_days=6000.0,
-                          packet_delay_days=0.01, U_g=0.4, f=3.0, Cg=1.0,
-                          stepper="rk23", n_substeps=2,
-                          packet_steps_per_save=20)
+FULL = dict(nx=512, n_packets=1_048_576, T_Fr_days=6000.0,
+            packet_delay_days=0.01, U_g=0.4, f=3.0, Cg=1.0, stepper="rk23",
+            n_substeps=2, packet_steps_per_save=20)
 
 
 def omega_over_f(pk, cfg):
     return torch.sqrt(cfg.f ** 2 + cfg.Cg ** 2 * (pk * pk).sum(0)) / cfg.f
 
 
-def phase_main_path(n_chunks):
-    cfg = main_config()
+def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
+    """Drive one coupled model at full width: set the launch counts to 0,
+    set up on the card, two warm-up chunks, n_chunks timed chunks, read
+    the counts, check the state. `per_step` names the kernels the path
+    launches once per flow step and, of those, the one that also prepares
+    the first carry's windows: (march, window kernel)."""
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    s, carry = setup_coupled2(cfg, dtype=torch.float32)  # device=None: CUDA
+    s, carry = setup(cfg, dtype=torch.float32)  # device=None: CUDA
     if carry.packet_x.device.type != "cuda" or s.march is None:
         raise AssertionError("the main path is not on the card / the march "
                              "is not engaged")
@@ -328,7 +550,7 @@ def phase_main_path(n_chunks):
     om0 = omega_over_f(carry.packet_k, cfg)
     om0_mean, om0_std = float(om0.mean()), float(om0.std())
     for _ in range(2):  # warm-up: builds the kernels' first launches, cuFFT
-        carry, _ = run_coupled2_chunk(carry, s, cfg, 1)
+        carry, _ = run_chunk(carry, s, cfg, 1)
     torch.cuda.synchronize()
 
     start = torch.cuda.Event(enable_timing=True)
@@ -336,48 +558,50 @@ def phase_main_path(n_chunks):
     t0 = time.perf_counter()
     start.record()
     for _ in range(n_chunks):
-        carry, (px, pk, ts) = run_coupled2_chunk(carry, s, cfg, 1)
+        carry, (px, pk, ts) = run_chunk(carry, s, cfg, 1)
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     seconds = start.elapsed_time(end) / 1e3
-    launches = {"march": mw.march_cuda.launches,
-                "transpose": mw.transpose_cuda.launches}
+    launches = read_launches()
 
     steps = n_chunks * cfg.packet_steps_per_save
-    # counted since just before setup: one march and one transpose per
-    # flow step, warm-up included, plus the one transpose that prepares
-    # the first carry's windows
+    # counted since just before setup: the march and the window kernel once
+    # per flow step, warm-up included, plus the one window launch that
+    # prepares the first carry's windows; no other kernel at all
     all_steps = (2 + n_chunks) * cfg.packet_steps_per_save
-    if launches != {"march": all_steps, "transpose": all_steps + 1}:
-        raise AssertionError(
-            f"launch counts {launches}, expected march {all_steps}, "
-            f"transpose {all_steps + 1}")
+    march, window = per_step
+    expected = dict.fromkeys(WRAPPERS, 0)
+    expected[march] = all_steps
+    expected[window] = all_steps + 1
+    if launches != expected:
+        raise AssertionError(f"{phase}: launch counts {launches}, expected "
+                             f"{expected}")
     for name, t in (("packet_x", carry.packet_x), ("packet_k", carry.packet_k),
                     ("prev_fields", carry.prev_fields),
                     ("qk", torch.view_as_real(carry.flow_state.qk))):
         if not torch.isfinite(t).all():
-            raise AssertionError(f"{name} is not finite")
+            raise AssertionError(f"{phase}: {name} is not finite")
     if px.shape != (1, 2, cfg.n_packets) or pk.shape != px.shape:
         raise AssertionError(f"unexpected save shapes {px.shape} {pk.shape}")
     overflow = int(carry.overflow)
     if overflow != 0:
-        raise AssertionError(f"march overflow {overflow} on the main path")
+        raise AssertionError(f"{phase}: march overflow {overflow}")
     moved = float((carry.packet_x - x_start).abs().max())
     if not moved > 1e-3:
-        raise AssertionError(f"packets did not move ({moved})")
+        raise AssertionError(f"{phase}: packets did not move ({moved})")
     om1 = omega_over_f(carry.packet_k, cfg)
     if abs(om0_mean - 2.0) > 1e-5 or om0_std > 1e-5:
         raise AssertionError(f"omega/f starts at {om0_mean} +- {om0_std}")
     if not float(om1.std()) > 10 * max(om0_std, 1e-7):
-        raise AssertionError("omega/f did not spread")
-    speed = float(qg2.max_speed2(carry.flow_state.qk, s.grid, s.ops,
-                                 s.params))
+        raise AssertionError(f"{phase}: omega/f did not spread")
+    speed = float(max_speed(carry.flow_state.qk, s))
     if not 0.05 < speed < 10.0:
-        raise AssertionError(f"max speed {speed} is not O(1)")
-    emit("main_path", nx=cfg.nx, n_packets=cfg.n_packets, dtype="float32",
+        raise AssertionError(f"{phase}: max speed {speed} is not O(1)")
+    emit(phase, nx=cfg.nx, n_packets=cfg.n_packets, dtype="float32",
          stepper=cfg.stepper, n_substeps=cfg.n_substeps,
-         margin=s.march.margin, K=s.march.K, dt=s.dt, U0=s.U0,
+         margin=s.march.margin, K=s.march.K,
+         fused_build=s.march.fused_build, dt=s.dt, U0=s.U0,
          timed_chunks=n_chunks, flow_steps=steps,
          flow_steps_with_warm_up=all_steps, seconds=seconds,
          host_seconds=wall, flow_steps_per_s=steps / seconds,
@@ -388,11 +612,27 @@ def phase_main_path(n_chunks):
          omega_over_f_end=[float(om1.mean()), float(om1.std())],
          max_speed=speed, t_end=carry.flow_state.t,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
-    return cfg, s, carry, launches, all_steps
+    return (cfg, s, carry), launches, all_steps
+
+
+def phase_main_path(n_chunks):
+    return drive_coupled(
+        "main_path", Coupled2Config(**FULL), setup_coupled2,
+        run_coupled2_chunk,
+        lambda qk, s: qg2.max_speed2(qk, s.grid, s.ops, s.params),
+        ("march", "transpose"), n_chunks)
+
+
+def phase_main_path_qg1(n_chunks):
+    return drive_coupled(
+        "main_path_qg1", CoupledConfig(march_fused_build=True, **FULL),
+        setup_coupled, run_coupled_chunk,
+        lambda qk, s: qg.max_speed(qk, s.grid, s.qg_params.Kd2),
+        ("march", "build_windows"), n_chunks)
 
 
 # ---------------------------------------------------------------------------
-# the kernels at the main path's shapes
+# the kernels at the main paths' shapes
 # ---------------------------------------------------------------------------
 
 def march_flops_per_packet(spec):
@@ -417,7 +657,26 @@ def march_flops_per_packet(spec):
     return spec.n_substeps * per_substep
 
 
-def phase_kernels(cfg, s, carry, launches, steps):
+def march_rays_flops_per_packet_step(order):
+    """Floating-point operations of the plain algorithm for one packet over
+    one Strang step of march_rays_reference (integer index work is not
+    counted)."""
+    S = 2 * order + 2
+    drift = 5 + 1 + 2 * 4          # f2 + gH (k.k); sqrt; gH k / om * hdt + x
+    cell = 2 * 4                   # divide, mod, floor, fraction
+    weights = 2 * (S + S * (S - 2) + S)   # a = fr - o; products; / denom
+    stencil = S * S + 6 * S * S * 2       # wx wy; multiply-add per field
+    kick = 6 + 4 * 2               # refraction; x += dt u, k -= dt r
+    return 2 * drift + cell + weights + stencil + kick
+
+
+def time_parts(parts, reps=15):
+    return {name: cuda_ms(fn, reps) for name, fn in parts.items()}
+
+
+def phase_kernels(cfg, s, carry, steps):
+    """K1 march and K2 transpose at the two-layer main path's shapes, and
+    the parts of one two-layer flow step."""
     spec = s.march
     dtype = carry.packet_x.dtype
     item = carry.packet_x.element_size()
@@ -435,7 +694,7 @@ def phase_kernels(cfg, s, carry, launches, steps):
     pwc = mw.gather_packet_windows(winc, oi, oj, spec)
 
     # the parts of one flow step, each timed alone on these inputs
-    parts = {
+    breakdown = time_parts({
         "qg2_step": lambda: qg2.qg2_step(carry.flow_state, s.grid, s.ops,
                                          s.params),
         "top_layer_flow": lambda: qg2.top_layer_flow(
@@ -448,8 +707,7 @@ def phase_kernels(cfg, s, carry, launches, steps):
         "packet_cells": lambda: mw.packet_cells(x[0], x[1], spec),
         "gather_packet_windows": lambda: mw.gather_packet_windows(
             winc, oi, oj, spec),
-    }
-    breakdown = {name: cuda_ms(fn, 15) for name, fn in parts.items()}
+    })
     del winc
     dummy = pwc.new_zeros((1, 1))
     xk = torch.cat([x, k], dim=0)
@@ -494,40 +752,211 @@ def phase_kernels(cfg, s, carry, launches, steps):
     tr_plain_ms = cuda_ms(lambda: mw.transpose_reference(W), 25)
     tr_lib_ms = cuda_ms(lambda: W.t().contiguous(), 25)
     tr_bytes = 2 * W.numel() * item
-
     tr_by_bytes = tr_bytes / HBM_BYTES_PER_S * 1e3
 
     # What the bounds were computed from, and what the errors were held to.
-    emit("kernel_bounds", hbm_bytes_per_s=HBM_BYTES_PER_S,
-         flops_per_s=FLOPS_PER_S[dtype], flow_steps=steps,
-         march={"shape": f"pwc {tuple(pwc.shape)} {dtype}, xk (4, {n_p})",
-                "bytes": march_bytes, "flops": march_flops,
-                "ms_by_bytes": by_bytes, "ms_by_operations": by_ops,
-                "tolerance": {"rtol": F32_RTOL, "atol": F32_ATOL}},
-         transpose={"shape": f"{tuple(W.shape)} {dtype}", "bytes": tr_bytes,
-                    "flops": 0, "ms_by_bytes": tr_by_bytes,
-                    "ms_by_operations": 0.0, "tolerance": "exact"})
-
+    bounds = {
+        "flow_steps": steps,
+        "march": {"shape": f"pwc {tuple(pwc.shape)} {dtype}, xk (4, {n_p})",
+                  "bytes": march_bytes, "flops": march_flops,
+                  "ms_by_bytes": by_bytes, "ms_by_operations": by_ops,
+                  "tolerance": {"rtol": F32_RTOL, "atol": F32_ATOL}},
+        "transpose": {"shape": f"{tuple(W.shape)} {dtype}", "bytes": tr_bytes,
+                      "flops": 0, "ms_by_bytes": tr_by_bytes,
+                      "ms_by_operations": 0.0, "tolerance": "exact"}}
     # Per kernel: bound_ms from this run's inputs, every other number
-    # measured in this run.
+    # measured in this run; main() adds the launches.
     rows = [
         {"name": "march", "route": "cuda", "source": SOURCES["march"],
-         "replaces": REPLACES["march"], "launches": launches["march"],
-         "max_abs_err": march_err, "ms": march_ms,
+         "replaces": REPLACES["march"], "max_abs_err": march_err, "ms": march_ms,
          "plain_ms": march_plain_ms, "bound_ms": max(by_bytes, by_ops),
          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
          "library_ms": None},
         {"name": "transpose", "route": "cuda", "source": SOURCES["transpose"],
-         "replaces": REPLACES["transpose"],
-         "launches": launches["transpose"], "max_abs_err": tr_err,
+         "replaces": REPLACES["transpose"], "max_abs_err": tr_err,
          "ms": tr_ms, "plain_ms": tr_plain_ms, "bound_ms": tr_by_bytes,
          "bound_by": "bytes", "library_ms": tr_lib_ms},
     ]
-    for row in rows:
-        if row["launches"] < 1:
-            raise AssertionError(f"the main path never launched "
-                                 f"{row['name']}")
-    return rows
+    return rows, bounds
+
+
+def phase_kernels_qg1(cfg, s, carry):
+    """K3 build_windows at the one-layer main path's shape, beside the
+    two-pass route on the same fields, and the parts of one one-layer flow
+    step."""
+    spec = s.march
+    dtype = carry.packet_x.dtype
+    item = carry.packet_x.element_size()
+    qp = s.qg_params
+
+    state2 = qg.qg_step(carry.flow_state, s.grid, qp)
+    fields2 = flow_from_qk(state2.qk, s.grid, qp.Kd2, n_fields=spec.nf).fields
+    got = mw.build_windows_cuda(fields2, spec)
+    torch.cuda.synchronize()
+    want = mw.build_windows_reference(fields2, spec)
+    if tuple(got.shape) != (cfg.nx * cfg.nx, spec.K):
+        raise AssertionError(f"unexpected window array {tuple(got.shape)}")
+    bw_err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("build_windows differs from its plain version "
+                             f"at the main shape by {bw_err:.3e}")
+    del want
+    W = mw.build_margin_windows(fields2, spec)
+    if not torch.equal(got, mw.transpose_cuda(W)):
+        raise AssertionError("build_windows differs from the two-pass route "
+                             "at the main shape")
+    winc = torch.cat([carry.prev_win, got], dim=-1)
+    x, k = carry.packet_x, carry.packet_k
+    oi, oj = mw.packet_cells(x[0], x[1], spec)
+    pwc = mw.gather_packet_windows(winc, oi, oj, spec)
+    xk = torch.cat([x, k], dim=0)
+    dummy = pwc.new_zeros((1, 1))
+    sub_dt = s.dt / cfg.n_substeps
+    breakdown = time_parts({
+        "qg_step": lambda: qg.qg_step(carry.flow_state, s.grid, qp),
+        "flow_from_qk": lambda: flow_from_qk(state2.qk, s.grid, qp.Kd2,
+                                             n_fields=spec.nf),
+        "build_windows_fused": lambda: mw.build_windows_fused(fields2, spec),
+        "cat_windows": lambda: torch.cat([carry.prev_win, got], dim=-1),
+        "packet_cells": lambda: mw.packet_cells(x[0], x[1], spec),
+        "gather_packet_windows": lambda: mw.gather_packet_windows(
+            winc, oi, oj, spec),
+        "march_cuda": lambda: mw.march_cuda(pwc, dummy, xk, oi, oj, sub_dt,
+                                            spec),
+    })
+    two_pass = time_parts({
+        "build_margin_windows": lambda: mw.build_margin_windows(fields2,
+                                                                spec),
+        "transpose_cuda": lambda: mw.transpose_cuda(W),
+    })
+    emit("step_breakdown_qg1", unit="ms, median, each part alone",
+         sum_of_parts=sum(breakdown.values()), **breakdown,
+         two_pass_route_on_the_same_fields=two_pass)
+    del winc, pwc, W
+
+    bw_ms = cuda_ms(lambda: mw.build_windows_cuda(fields2, spec), 25)
+    bw_plain_ms = cuda_ms(lambda: mw.build_windows_reference(fields2, spec),
+                          10)
+    # the one library copy that does the same: the padded fields' shifted
+    # views, permuted to rows, made contiguous
+    shifted = mw._shifted_views(fields2, spec)
+    bw_lib_ms = cuda_ms(
+        lambda: shifted.permute(3, 4, 0, 1, 2).contiguous(), 10)
+    bw_bytes = (got.numel() + spec.nf * cfg.nx * cfg.nx) * item
+    by_bytes = bw_bytes / HBM_BYTES_PER_S * 1e3
+    bounds = {"build_windows": {
+        "shape": f"F {tuple(fields2.shape)} -> {tuple(got.shape)} {dtype}",
+        "bytes": bw_bytes, "flops": 0, "ms_by_bytes": by_bytes,
+        "ms_by_operations": 0.0, "tolerance": "exact"}}
+    row = {"name": "build_windows", "route": "cuda",
+           "source": SOURCES["build_windows"],
+           "replaces": REPLACES["build_windows"], "max_abs_err": bw_err,
+           "ms": bw_ms, "plain_ms": bw_plain_ms, "bound_ms": by_bytes,
+           "bound_by": "bytes", "library_ms": bw_lib_ms}
+    return [row], bounds
+
+
+# ---------------------------------------------------------------------------
+# the frozen-flow ray march at full width
+# ---------------------------------------------------------------------------
+
+# The frozen path at full width: the grid and packet count of the coupled
+# runs, the step of the JAX package's own timing of its ray-march kernel.
+FROZEN = dict(nx=512, n_packets=1_048_576, dt=1e-3, Kd2=3.0,
+              drift_packets=2 ** 16, drift_steps=500)
+
+
+def phase_frozen_path(dev):
+    """2^20 packets, 50 symplectic steps through a frozen 512^2 one-layer
+    snapshot: march_rays (one launch of K4) against its plain version and
+    raytrace_frozen on the card, then the frequency drift in float64."""
+    nx, n_p, dt, Kd2 = (FROZEN[key] for key in ("nx", "n_packets", "dt",
+                                                "Kd2"))
+    grid = SpectralGrid.square(nx)
+    disp = Dispersion(f=3.0, Cg=1.0)
+    dtype = torch.float32
+    qk = qg.initial_q_ring(146, grid, 0.4, Kd2, dtype=dtype)  # on the card
+    flow = flow_from_qk(qk, grid, Kd2, n_fields=6)
+    fields = flow.fields.contiguous()
+    x0, k0 = ring_ics(n_p, 2.0, disp, dtype=dtype)
+    args = (fields, x0, k0, grid, disp, dt, RAYS_STEPS)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    xN, kN = mr.march_rays(*args)
+    end.record()
+    torch.cuda.synchronize()
+    first_ms = start.elapsed_time(end)
+    launches = read_launches()
+    expected = dict.fromkeys(WRAPPERS, 0)
+    expected["march_rays"] = 1
+    if launches != expected:
+        raise AssertionError(f"frozen_path: launch counts {launches}, "
+                             f"expected {expected}")
+    if xN.shape != (2, n_p) or kN.shape != (2, n_p) or not xN.is_cuda:
+        raise AssertionError("frozen_path: unexpected result")
+
+    want = mr.march_rays_reference(*args)
+    err = compare_rays((xN, kN), want, RAYS_F32_ATOL, "frozen_path")
+    res = raytrace_frozen(flow, x0, k0, disp, dt, RAYS_STEPS,
+                          save_every=RAYS_STEPS, stepper="symplectic")
+    err_frozen = compare_rays((xN, kN), (res.x[-1], res.k[-1]),
+                              RAYS_F32_ATOL, "frozen_path vs raytrace_frozen")
+    moved = float((xN - x0).abs().max())
+    if not moved > 1e-2:
+        raise AssertionError(f"frozen_path: packets did not move ({moved})")
+    drift32 = float(res.conservation_error[-1])
+    del want, res
+
+    ms = cuda_ms(lambda: mr.march_rays_cuda(*args), 10)
+    plain_ms = cuda_ms(lambda: mr.march_rays_reference(*args), 2)
+    peak = torch.cuda.max_memory_allocated()
+
+    # float64 at fewer packets, 500 steps: the absolute frequency
+    # omega + U.k is the invariant of a steady flow
+    f64 = torch.float64
+    flow64 = GriddedFlow(fields=fields.to(f64), grid=grid)
+    x64, k64 = ring_ics(FROZEN["drift_packets"], 2.0, disp, dtype=f64)
+    xe, ke = mr.march_rays(flow64.fields, x64, k64, grid, disp, dt,
+                           FROZEN["drift_steps"])
+    om0 = disp.absolute_frequency(k64, flow64.at(x64[0], x64[1]).uv)
+    om1 = disp.absolute_frequency(ke, flow64.at(xe[0], xe[1]).uv)
+    drift = float(((om1 - om0) / om0).abs().max())
+    if not drift < 2e-3:
+        raise AssertionError(f"frozen_path: frequency drift {drift}")
+
+    item = x0.element_size()
+    flops = n_p * RAYS_STEPS * march_rays_flops_per_packet_step(2)
+    nbytes = (2 * 4 * n_p + fields.numel()) * item
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FLOPS_PER_S[dtype] * 1e3
+    cache_bytes = 36 * 6 * item * n_p * RAYS_STEPS
+    emit("frozen_path", nx=nx, n_packets=n_p, dtype="float32", dt=dt,
+         steps=RAYS_STEPS, order=2, launches=launches,
+         first_launch_ms=first_ms, ms=ms,
+         packet_steps_per_s=n_p * RAYS_STEPS / (ms / 1e3),
+         max_abs_err_vs_plain=err, max_abs_err_vs_raytrace_frozen=err_frozen,
+         atol=RAYS_F32_ATOL, max_packet_displacement=moved,
+         frequency_drift_float32_50_steps=drift32,
+         frequency_drift_float64_500_steps=drift, drift_limit=2e-3,
+         drift_packets=FROZEN["drift_packets"], peak_memory_bytes=peak)
+    bounds = {"march_rays": {
+        "shape": f"fields {tuple(fields.shape)}, x0 k0 (2, {n_p}) {dtype}, "
+                 f"{RAYS_STEPS} steps, order 2",
+        "bytes": nbytes, "flops": flops, "ms_by_bytes": by_bytes,
+        "ms_by_operations": by_ops,
+        "stencil_reads_through_cache_bytes": cache_bytes,
+        "tolerance": {"rtol": 0.0, "atol": RAYS_F32_ATOL}}}
+    row = {"name": "march_rays", "route": "cuda",
+           "source": SOURCES["march_rays"],
+           "replaces": REPLACES["march_rays"], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "library_ms": None}
+    return [row], bounds, launches
 
 
 def main():
@@ -545,8 +974,27 @@ def main():
     phase_build()
     phase_kernels_vs_plain(dev)
     phase_path_vs_cpu(dev)
-    rows = phase_kernels(*phase_main_path(N_CHUNKS))
+    two, launches_two, steps = phase_main_path(N_CHUNKS)
+    rows, bounds = phase_kernels(*two, steps)
+    del two
+    one, launches_one, _ = phase_main_path_qg1(N_CHUNKS)
+    rows_one, bounds_one = phase_kernels_qg1(*one)
+    del one
+    rows_rays, bounds_rays, launches_rays = phase_frozen_path(dev)
+    rows += rows_one + rows_rays
+    bounds.update(bounds_one, **bounds_rays)
     torch.cuda.synchronize()
+    # launches: over the three main paths, each counted from 0
+    by_path = {"main_path": launches_two, "main_path_qg1": launches_one,
+               "frozen_path": launches_rays}
+    for row in rows:
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if row["launches"] < 1:
+            raise AssertionError(f"no main path launched {row['name']}")
+    emit("kernel_bounds", hbm_bytes_per_s=HBM_BYTES_PER_S,
+         flops_per_s=FLOPS_PER_S[torch.float32], **bounds)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """swraytracing_torch — shallow-water wave-packet raytracing on PyTorch/CUDA.
 
 The PyTorch port of the swraytracing_tpu package, module for module:
-pseudo-spectral QG background-flow solvers on ``torch.fft``, the lock-step
-coupled flow + wave-packet model, and the fused packet march, whose two
-device kernels (the march itself and the window-array transpose) are
-hand-written CUDA C++ under ``kernels/csrc`` built at first use.
+pseudo-spectral one- and two-layer QG flow solvers on ``torch.fft``, the
+lock-step coupled flow + wave-packet models, the ray integrators and the
+frozen-flow raytracer. Its four device kernels (the fused packet march,
+the window-array transpose, the one-pass window build and the frozen-flow
+ray march) are hand-written CUDA C++ under ``kernels/csrc`` built at first
+use.
 
 Everything runs eagerly on the device of the tensors it is given. Entry
 points that create tensors take an explicit ``device`` and ``dtype``;

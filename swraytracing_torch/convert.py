@@ -8,7 +8,9 @@ names,
     {"flow_state": {"qk", "rhs_m1", "rhs_m2", "t", "step"},
      "packet_x", "packet_k", "prev_fields", "prev_win", "overflow"}
 
-where "prev_win" and "overflow" may be None (or absent).
+where "prev_win" and "overflow" may be None (or absent). The flow state is
+the one-layer solver's when "qk" has rank 2 (nx, nky) and the two-layer
+solver's when it has rank 3 (2, nx, nky).
 """
 
 from __future__ import annotations
@@ -18,18 +20,21 @@ import torch
 
 from .ops.grid import complex_dtype, resolve_device
 from .models.coupled import CoupledCarry
+from .models.qg import QGParams, QGState
 from .models.qg2 import QG2Operators, QG2State
 
-__all__ = ["carry_from_numpy", "carry_to_numpy", "operators_from_numpy"]
+__all__ = ["carry_from_numpy", "carry_to_numpy", "operators_from_numpy",
+           "qg_params_from_numpy"]
 
 
 def carry_from_numpy(tree: dict, device=None,
                      dtype: torch.dtype = torch.float32) -> CoupledCarry:
-    """Build a CoupledCarry (two-layer flow state) from a dict of numpy
-    arrays. Real arrays become `dtype`, spectra its complex counterpart,
-    on `device` (None = the CUDA device; raises when there is none).
-    `t` and `step` become host scalars. Every array is copied: the carry
-    never aliases the caller's numpy memory."""
+    """Build a CoupledCarry from a dict of numpy arrays: a QGState when
+    `qk` has rank 2, a QG2State when it has rank 3. Real arrays become
+    `dtype`, spectra its complex counterpart, on `device` (None = the CUDA
+    device; raises when there is none). `t` and `step` become host
+    scalars. Every array is copied: the carry never aliases the caller's
+    numpy memory."""
     device = resolve_device(device)
     cd = complex_dtype(dtype)
 
@@ -41,9 +46,14 @@ def carry_from_numpy(tree: dict, device=None,
         return torch.tensor(np.asarray(a), dtype=cd, device=device)
 
     fs = tree["flow_state"]
-    state = QG2State(qk=spec(fs["qk"]), rhs_m1=spec(fs["rhs_m1"]),
-                     rhs_m2=spec(fs["rhs_m2"]), t=float(fs["t"]),
-                     step=int(fs["step"]))
+    rank = np.ndim(fs["qk"])
+    if rank not in (2, 3):
+        raise ValueError("flow_state['qk'] must be (nx, nky) or (2, nx, nky); "
+                         f"got rank {rank}")
+    State = QGState if rank == 2 else QG2State
+    state = State(qk=spec(fs["qk"]), rhs_m1=spec(fs["rhs_m1"]),
+                  rhs_m2=spec(fs["rhs_m2"]), t=float(fs["t"]),
+                  step=int(fs["step"]))
     ov = tree.get("overflow")
     if ov is not None:
         ov = torch.tensor(np.asarray(ov), dtype=torch.int32, device=device)
@@ -81,3 +91,18 @@ def operators_from_numpy(B, expLdt, expL2dt, dt) -> QG2Operators:
                         expLdt=np.asarray(expLdt, dtype=np.complex128),
                         expL2dt=np.asarray(expL2dt, dtype=np.complex128),
                         dt=float(dt))
+
+
+def qg_params_from_numpy(Kd2, dt, forcing=None, filter=None, *, beta=0.0,
+                         r_drag=0.1, dealias=False,
+                         reference_quirks=False) -> QGParams:
+    """QGParams from host arrays (for example the forcing and filter of a
+    JAX run's `CoupledSetup.qg_params`), kept in float64 on the host; the
+    stepping functions take their device view from it."""
+    def host(a):
+        return None if a is None else np.array(a, dtype=np.float64)
+
+    return QGParams(Kd2=float(Kd2), beta=float(beta), r_drag=float(r_drag),
+                    dt=float(dt), forcing=host(forcing), filter=host(filter),
+                    dealias=bool(dealias),
+                    reference_quirks=bool(reference_quirks))

@@ -9,15 +9,20 @@ named by a hash of the sources, headers and flags, so an unchanged tree
 builds once and a changed source never meets a stale library.
 
 Nothing here runs at import: ``nvcc`` and ``ctypes`` are reached only
-from ``load()``, which the kernel wrappers in ops/march_window.py call at
-their first launch. A failed build or launch raises; there is no
-fallback.
+from ``load()``, which the kernel wrappers in ops/march_window.py and
+ops/march_rays.py call at their first launch. A failed build or launch
+raises; there is no fallback.
 
 Kernels (C entry -> wrapper):
   swr_march_f32, swr_march_f64  csrc/march.cuh (march_f32.cu, march_f64.cu)
                                 ops.march_window.march_cuda
   swr_transpose                 csrc/transpose.cu
                                 ops.march_window.transpose_cuda
+  swr_build_windows             csrc/build_windows.cu
+                                ops.march_window.build_windows_cuda
+  swr_march_rays_f32, _f64      csrc/march_rays.cu
+                                ops.march_rays.march_rays_cuda
+csrc/scalar.cuh holds the scalar helpers the two march kernels share.
 """
 
 from __future__ import annotations
@@ -113,6 +118,22 @@ def _bind(lib: ctypes.CDLL) -> None:
             vp]                  # stream
     lib.swr_transpose.restype = i32
     lib.swr_transpose.argtypes = [i32, vp, vp, i64, i64, vp]
+    lib.swr_build_windows.restype = i32
+    lib.swr_build_windows.argtypes = [
+        i32, vp, vp,             # dtype, F, W
+        i32, i32, i32,           # nf, nx, ny
+        i32, i32,                # SW, order + margin
+        vp]                      # stream
+    for rays in (lib.swr_march_rays_f32, lib.swr_march_rays_f64):
+        rays.restype = i32
+        rays.argtypes = [
+            vp, vp, vp,          # fields, x0, k0
+            vp, vp,              # xN, kN
+            i64, i32, i32,       # Np, nx, ny
+            f64, f64, f64,       # dx, dy, dt
+            f64, f64,            # f^2, Cg^2
+            i32, i32, i32,       # nsteps, order, threads per block
+            vp]                  # stream
     lib.swr_error_string.restype = ctypes.c_char_p
     lib.swr_error_string.argtypes = [i32]
 

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "scalar.cuh"
+
 namespace {
 
 enum { RK23 = 0, RK4 = 1, SYMPLECTIC = 2 };
@@ -57,22 +59,6 @@ struct MarchArgs {
   double inv_dx, inv_dy, f2, gH;
   int margin, nsub;
 };
-
-__device__ __forceinline__ float fmod_(float a, float b) { return fmodf(a, b); }
-__device__ __forceinline__ double fmod_(double a, double b) { return fmod(a, b); }
-__device__ __forceinline__ float floor_(float a) { return floorf(a); }
-__device__ __forceinline__ double floor_(double a) { return floor(a); }
-__device__ __forceinline__ float sqrt_(float a) { return sqrtf(a); }
-__device__ __forceinline__ double sqrt_(double a) { return sqrt(a); }
-
-// Floored modulo, as torch.remainder and jnp.mod: the result takes the
-// sign of n, and can be exactly n for a tiny negative x.
-template <typename T>
-__device__ __forceinline__ T floored_mod(T x, T n) {
-  T r = fmod_(x, n);
-  if (r != T(0) && ((r < T(0)) != (n < T(0)))) r += n;
-  return r;
-}
 
 // Lagrange basis weights for nodes -2..3 at fractional position fr, and
 // their derivatives. Products run over ascending j and multiply by the

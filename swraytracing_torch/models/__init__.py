@@ -1,5 +1,6 @@
-from . import coupled, coupled2, dispersion, fields, qg, qg2
+from . import (coupled, coupled2, dispersion, fields, frozen, qg, qg2,
+               rays)
 from .dispersion import Dispersion
 
-__all__ = ["coupled", "coupled2", "dispersion", "fields", "qg", "qg2",
-           "Dispersion"]
+__all__ = ["coupled", "coupled2", "dispersion", "fields", "frozen", "qg",
+           "qg2", "rays", "Dispersion"]

@@ -14,36 +14,109 @@ snapshot, and so are their gather windows, so each step builds windows
 for its new snapshot only.
 
 This module holds the carry, the packet initial conditions, the march
-configuration and the generic lock-step iteration on the fused-march
-path. The per-stage packet path below `window_min_np` packets and the
-one-layer model (`CoupledConfig`, `setup_coupled`, `run_coupled_chunk`)
-are not ported yet.
+configuration, the generic lock-step iteration and chunk loop on the
+fused-march path (shared with the two-layer model, coupled2.py), and the
+one-layer model's entry points (`CoupledConfig`, `setup_coupled`,
+`coupled_flow_packet_step`, `run_coupled_chunk`). The per-stage packet
+path below `window_min_np` packets is not ported yet.
+
+Everything runs eagerly: a chunk is a Python loop over flow steps, each a
+fixed sequence of device launches with no host synchronisation (time and
+step count live on the host).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops.grid import SpectralGrid, resolve_device
 from ..ops import march_window as mw
+from ..ops import spectral as sp
+from .dispersion import Dispersion
+from .fields import flow_from_qk
+from .qg import (QGParams, qg_init, qg_step, initial_q_ring,
+                 inertial_ring_forcing, max_speed)
 
-__all__ = ["CoupledCarry", "ring_packet_ics", "build_march_spec",
-           "window_threshold", "march_n_fields", "prepare_carry_windows",
-           "lockstep_step"]
+__all__ = ["CoupledConfig", "CoupledSetup", "CoupledCarry", "setup_coupled",
+           "coupled_flow_packet_step", "run_coupled_chunk",
+           "ring_packet_ics", "build_march_spec", "window_threshold",
+           "march_n_fields", "prepare_carry_windows", "lockstep_step",
+           "run_lockstep_chunk"]
 
 # Packet count from which the window-based paths engage when a config does
 # not say (the default of the configs' window_min_np field).
 _WINDOW_MIN_NP = 65536
 
 
+class CoupledConfig(NamedTuple):
+    """Mirrors the qgsw_raytrace positional signature
+    (qgsw_raytrace.m:1) plus the tuning constants it hard-codes."""
+
+    nx: int = 256
+    n_packets: int = 50
+    near_inertial_factor: float = 2.0   # w0: initial omega / f
+    T_Fr_days: float = 6000.0
+    packet_delay_days: float = 1000.0
+    U_g: float = 0.4
+    f: float = 3.0
+    Cg: float = 1.0
+    L: float = 2.0 * np.pi
+    beta: float = 0.0
+    r_drag: float = 0.1
+    forcing_strength: float = 0.1
+    CFL_fraction: float = 0.05          # qgsw_raytrace.m:29
+    steps_per_save: int = 50
+    packet_steps_per_save: int = 5
+    n_substeps: int = 2                 # packet substeps per flow step
+    stepper: str = "rk23"               # 'rk23' | 'rk4' | 'symplectic'
+    seed: int = 146                     # rng(146), qgsw_raytrace.m:23
+    ring_ic: bool = True                # False reproduces the reference bug
+    reference_quirks: bool = False
+    dealias: bool = False
+    # Fused packet march (ops/march_window.py): gather each packet's
+    # margin-widened stencil window ONCE per flow step and run all
+    # substeps in one kernel. Engages at n_packets >= window_min_np.
+    fused_march: bool = True
+    window_min_np: int = 65536
+    # Windows hold only (u, v); the march forms the velocity-gradient
+    # tensor by differentiating the Lagrange interpolant. Turn off for
+    # bit-parity with the spectral-gradient grids.
+    march_uv_windows: bool = True
+    # ONE gather per packet per flow step over both snapshots stacked on
+    # the window axis. Arithmetic is bit-identical to two gathers.
+    march_combined_gather: bool = True
+    # Explicit march margin (cells) overriding required_margin's CFL
+    # sizing; None = size from dt and the initial max speed.
+    march_margin: int | None = None
+    # One-kernel window build (march_window.build_windows_fused): writes
+    # the (ncells, K) window array once instead of shifted copies + the
+    # tiled transpose. Exact same output.
+    march_fused_build: bool = False
+
+
+class CoupledSetup(NamedTuple):
+    grid: SpectralGrid
+    disp: Dispersion
+    qg_params: QGParams
+    dt: float
+    n_steps: int
+    packet_delay: float
+    packet_step_start: int
+    Fr: float
+    U0: float
+    T: float
+    march: mw.MarchSpec | None = None
+
+
 @dataclasses.dataclass
 class CoupledCarry:
     """State carried from one flow step to the next."""
 
-    flow_state: object           # the flow solver's state (e.g. QG2State)
+    flow_state: object           # the flow solver's state (QGState, QG2State)
     packet_x: torch.Tensor       # (2, Np) coordinate-first
     packet_k: torch.Tensor       # (2, Np)
     # (nf, nx, ny) velocity(-gradient) grids of the previous step. nf is
@@ -160,7 +233,7 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, dt,
             f"grids but this configuration's path needs {exp_nf} "
             f"(march engaged, nf={march.nf}). The carry was built under a "
             "different march/window configuration — rebuild it with "
-            "setup_coupled2.")
+            "setup_coupled / setup_coupled2.")
     if fields2.shape[0] != exp_nf:
         raise ValueError(
             f"fields_fn produced {fields2.shape[0]} field grids but the "
@@ -225,3 +298,114 @@ def prepare_carry_windows(carry: CoupledCarry,
         return dataclasses.replace(
             carry, prev_win=mw.build_gather_windows(carry.prev_fields, march))
     return carry
+
+
+def run_lockstep_chunk(carry: CoupledCarry, step_fn, march,
+                       steps_per_save: int, n_saves: int,
+                       remat: bool = False, diag_fn=None):
+    """The chunk loop both models share: n_saves * steps_per_save calls of
+    `step_fn` (carry -> carry), one save after every steps_per_save. See
+    run_coupled_chunk for what it returns."""
+    if remat:
+        raise NotImplementedError(
+            "rematerialised differentiable chunks (remat=True) are not "
+            "ported yet: ROADMAP item A10")
+    carry = prepare_carry_windows(carry, march)
+    saves, ts = [], []
+    for _ in range(n_saves):
+        for _ in range(steps_per_save):
+            carry = step_fn(carry)
+        ts.append(carry.flow_state.t)
+        if diag_fn is not None:
+            saves.append((diag_fn(carry),))
+        else:
+            saves.append((carry.packet_x, carry.packet_k))
+    stacked = tuple(torch.stack(col) for col in zip(*saves))
+    return carry, (*stacked, torch.tensor(ts, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# The one-layer model (qgsw_raytrace.m)
+# ---------------------------------------------------------------------------
+
+def setup_coupled(cfg: CoupledConfig, device=None,
+                  dtype: torch.dtype = torch.float32):
+    """Build grid, params, ICs and the CFL time step, mirroring
+    qgsw_raytrace.m:13-73.
+
+    `device=None` means the CUDA device and raises when there is none;
+    pass `device="cpu"` to run on the CPU. `dtype` is the real dtype of
+    the state (spectra are its complex counterpart). The initial maximum
+    speed is read back from the device once, here: one synchronisation at
+    setup, none per step. Returns (setup, carry0).
+    """
+    device = resolve_device(device)
+    grid = SpectralGrid.square(cfg.nx, cfg.L)
+    disp = Dispersion(f=cfg.f, Cg=cfg.Cg)
+    Kd2 = cfg.f / cfg.Cg  # K_d2 = f/Cg as the reference (qgsw_raytrace.m:27)
+
+    qk0 = initial_q_ring(cfg.seed, grid, cfg.U_g, Kd2, ring=cfg.ring_ic,
+                         device=device, dtype=dtype)
+    forcing = inertial_ring_forcing(cfg.forcing_strength, grid, cfg.f, cfg.Cg)
+
+    U0 = float(max_speed(qk0, grid, Kd2))
+    Fr = U0 / cfg.Cg
+    T_days = cfg.T_Fr_days / cfg.f
+    T = T_days / Fr**2
+    dt = cfg.CFL_fraction * grid.dx / U0
+    n_steps = int(np.ceil(T / dt))
+    packet_delay = cfg.packet_delay_days / cfg.f
+    packet_step_start = int(np.ceil(packet_delay / dt))
+
+    qp = QGParams(Kd2=Kd2, beta=cfg.beta, r_drag=cfg.r_drag, dt=dt,
+                  forcing=forcing, filter=sp.exp_filter(grid),
+                  dealias=cfg.dealias, reference_quirks=cfg.reference_quirks)
+
+    px0, pk0 = ring_packet_ics(cfg, grid, device=device, dtype=dtype)
+    march = build_march_spec(cfg, grid, dt, U0)
+    nf0 = march_n_fields(march)
+    fields0 = flow_from_qk(qk0, grid, Kd2, n_fields=nf0).fields
+    carry0 = CoupledCarry(flow_state=qg_init(qk0), packet_x=px0,
+                          packet_k=pk0, prev_fields=fields0)
+    setup = CoupledSetup(grid=grid, disp=disp, qg_params=qp, dt=dt,
+                         n_steps=n_steps, packet_delay=packet_delay,
+                         packet_step_start=packet_step_start, Fr=Fr, U0=U0,
+                         T=T, march=march)
+    return setup, carry0
+
+
+def coupled_flow_packet_step(carry: CoupledCarry, s: CoupledSetup,
+                             cfg: CoupledConfig) -> CoupledCarry:
+    """One-layer QG lock-step iteration (qgsw_raytrace.m:121-151)."""
+    grid, qp = s.grid, s.qg_params
+    nf = march_n_fields(s.march)
+    return lockstep_step(
+        carry,
+        flow_step_fn=lambda st: qg_step(st, grid, qp),
+        fields_fn=lambda st: flow_from_qk(st.qk, grid, qp.Kd2,
+                                          n_fields=nf).fields,
+        dt=s.dt, packet_delay=s.packet_delay, n_substeps=cfg.n_substeps,
+        stepper=cfg.stepper, march=s.march)
+
+
+def run_coupled_chunk(carry: CoupledCarry, s: CoupledSetup,
+                      cfg: CoupledConfig, n_saves: int,
+                      remat: bool = False, diag_fn=None):
+    """Advance n_saves * packet_steps_per_save flow steps, emitting a
+    packet snapshot every packet_steps_per_save steps (the reference's
+    packet save cadence, qgsw_raytrace.m:153-163).
+
+    Returns (carry, (px (n_saves, 2, Np), pk (n_saves, 2, Np),
+    t (n_saves,) float64 on the host)). The chunk itself never
+    synchronises with the device; `carry.overflow` is a device tensor for
+    the caller to read once the chunk is done.
+
+    diag_fn: optional carry -> tensor device diagnostic. When given, each
+    save emits (diag, t) INSTEAD of the full packet arrays and the return
+    becomes (carry, (diag (n_saves, ...), t (n_saves,))).
+
+    remat=True (rematerialised reverse-mode differentiation) is not
+    ported yet and raises NotImplementedError."""
+    return run_lockstep_chunk(
+        carry, lambda c: coupled_flow_packet_step(c, s, cfg), s.march,
+        cfg.packet_steps_per_save, n_saves, remat, diag_fn)

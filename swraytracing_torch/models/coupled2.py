@@ -27,8 +27,7 @@ import torch
 from ..ops.grid import SpectralGrid, resolve_device
 from .dispersion import Dispersion
 from .coupled import (CoupledCarry, lockstep_step, ring_packet_ics,
-                      prepare_carry_windows, build_march_spec,
-                      march_n_fields)
+                      run_lockstep_chunk, build_march_spec, march_n_fields)
 from .qg2 import (QG2Params, QG2Operators, qg2_init, qg2_step,
                   build_operators, initial_q2_ring, top_layer_flow,
                   max_speed2)
@@ -171,19 +170,6 @@ def run_coupled2_chunk(carry: CoupledCarry, s: Coupled2Setup,
 
     remat=True (rematerialised reverse-mode differentiation) is not
     ported yet and raises NotImplementedError."""
-    if remat:
-        raise NotImplementedError(
-            "rematerialised differentiable chunks (remat=True) are not "
-            "ported yet: ROADMAP item A10")
-    carry = prepare_carry_windows(carry, s.march)
-    saves, ts = [], []
-    for _ in range(n_saves):
-        for _ in range(cfg.packet_steps_per_save):
-            carry = coupled2_flow_packet_step(carry, s, cfg)
-        ts.append(carry.flow_state.t)
-        if diag_fn is not None:
-            saves.append((diag_fn(carry),))
-        else:
-            saves.append((carry.packet_x, carry.packet_k))
-    stacked = tuple(torch.stack(col) for col in zip(*saves))
-    return carry, (*stacked, torch.tensor(ts, dtype=torch.float64))
+    return run_lockstep_chunk(
+        carry, lambda c: coupled2_flow_packet_step(c, s, cfg), s.march,
+        cfg.packet_steps_per_save, n_saves, remat, diag_fn)

@@ -42,3 +42,10 @@ class Dispersion(NamedTuple):
     def group_velocity(self, k: torch.Tensor) -> torch.Tensor:
         """C = Cg^2 * k / omega; k: (2, ...) -> (2, ...)."""
         return self.gH * k / self.omega(k)[None]
+
+    def absolute_frequency(self, k: torch.Tensor, u: torch.Tensor
+                           ) -> torch.Tensor:
+        """Omega_abs = omega(k) + U . k, the ray invariant in steady flow
+        (SW_zero_background_raytracing.m:85-132 uses its conservation as
+        the integrator-correctness metric). k, u: (2, ...)."""
+        return self.omega(k) + torch.sum(u * k, dim=0)

@@ -1,36 +1,82 @@
-"""Gridded flow fields from spectral state.
+"""Flow-field abstraction: evaluate U and grad(U) at packet positions.
 
-Counterpart of the spectral constructors of swraytracing_tpu/models/
-fields.py (the reference's grid_U.m): velocity and velocity-gradient
-grids from a streamfunction or PV spectrum. Off-grid evaluation
-(`GriddedFlow.at`, `BlendedFlow`, `AnalyticFlow`) is not part of this
-module yet; the fused packet march (ops/march_window.py) interpolates
-from these grids itself.
+Counterpart of swraytracing_tpu/models/fields.py, after the reference's
+RaytracingScheme family (RaytracingScheme.m, SpectralScheme.m) and the
+procedural grid_U + interpolate_U path (qg_flow_ray_trace/grid_U.m,
+interpolate_U.m): velocity and velocity-gradient grids from a
+streamfunction or PV spectrum, and their evaluation off the grid by
+Lagrangian stencil interpolation (`GriddedFlow.at`), which returns a
+FlowEval of (u, v, u_x, u_y, v_x, v_y) at the packet positions.
+
+The fused packet march (ops/march_window.py) interpolates from the grids
+itself and does not go through `.at`. Prebuilt interpolation windows
+(`GriddedFlow.windowed`), `BlendedFlow` and `AnalyticFlow` are not part of
+this module yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from ..ops.grid import SpectralGrid
 from ..ops import spectral as sp
+from ..ops.interp import stencil_and_weights, interp_stencil_apply
 from .qg import _psik
 
-__all__ = ["GriddedFlow", "flow_from_qk"]
+__all__ = ["FlowEval", "GriddedFlow", "flow_from_qk", "flow_from_psik",
+           "flow_from_psi_grid"]
 
 # Field stacking order used throughout: [u, v, u_x, u_y, v_x, v_y].
 U, V, UX, UY, VX, VY = range(6)
 
 
+class FlowEval(NamedTuple):
+    """Velocity and velocity-gradient tensor at packet positions."""
+
+    u: torch.Tensor
+    v: torch.Tensor
+    u_x: torch.Tensor
+    u_y: torch.Tensor
+    v_x: torch.Tensor
+    v_y: torch.Tensor
+
+    @property
+    def uv(self):
+        """(2, Np) velocity, coordinate axis first."""
+        return torch.stack([self.u, self.v], dim=0)
+
+    def refraction(self, k):
+        """(grad U)^T k — the ray refraction term dk/dt = -(grad U)^T k
+        (RaytracingScheme.m:9-16). k is (2, Np) coordinate-first."""
+        kk, ll = k[0], k[1]
+        return torch.stack(
+            [self.u_x * kk + self.v_x * ll, self.u_y * kk + self.v_y * ll],
+            dim=0)
+
+
 @dataclasses.dataclass
 class GriddedFlow:
-    """Gridded (u, v[, grad U]) fields of one flow snapshot."""
+    """Flow given by gridded (u, v, grad U) fields, evaluated off-grid by
+    Lagrangian stencil interpolation — the SpectralScheme equivalent."""
 
     fields: torch.Tensor  # (n_fields, nx, ny) stacked [u, v, ux, uy, vx, vy]
     grid: SpectralGrid
     order: int = 2
+
+    def at(self, x, y, alpha=0.0) -> FlowEval:
+        """The six fields at positions x, y (Np,); a steady flow ignores
+        the within-step time fraction `alpha`."""
+        ix, iy, wx, wy = stencil_and_weights(x, y, self.grid, self.order)
+        vals = interp_stencil_apply(self.fields, ix, iy, wx, wy)
+        return FlowEval(*vals)
+
+    def velocity_at(self, x, y, alpha=0.0):
+        ix, iy, wx, wy = stencil_and_weights(x, y, self.grid, self.order)
+        vals = interp_stencil_apply(self.fields[:2], ix, iy, wx, wy)
+        return vals[0], vals[1]
 
 
 def _stack_from_psik(psik, grid: SpectralGrid, shear: float = 0.0,
@@ -65,3 +111,14 @@ def flow_from_qk(qk, grid: SpectralGrid, Kd2: float, shear: float = 0.0,
     psik = _psik(qk, grid, Kd2)
     return GriddedFlow(fields=_stack_from_psik(psik, grid, shear, n_fields),
                        grid=grid, order=order)
+
+
+def flow_from_psik(psik, grid: SpectralGrid, order: int = 2) -> GriddedFlow:
+    """Streamfunction spectrum -> GriddedFlow; the SpectralScheme
+    constructor (SpectralScheme.m:16-35)."""
+    return GriddedFlow(fields=_stack_from_psik(psik, grid), grid=grid,
+                       order=order)
+
+
+def flow_from_psi_grid(psi, grid: SpectralGrid, order: int = 2) -> GriddedFlow:
+    return flow_from_psik(sp.to_spectral(psi, grid), grid, order)

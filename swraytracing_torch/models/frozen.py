@@ -1,0 +1,96 @@
+"""Frozen-flow raytracing.
+
+Counterpart of `raytrace_frozen` and `ring_ics` of swraytracing_tpu/
+models/frozen.py: packets through a STEADY gridded flow with any of the
+four integrators, reporting the absolute-frequency conservation error
+dOmega/Omega0 — the reference's primary integrator-correctness metric
+(SW_zero_background_raytracing.m:85-132, symplectic_full_fourier.m).
+
+As in the JAX package, `raytrace_frozen` steps with the plain integrators
+of models/rays.py; the one-kernel march of a frozen flow is
+ops/march_rays.march_rays. The snapshot-file and RSW-restart workflows
+(`raytrace_pv_snapshot`, `raytrace_rsw_restart`) are not part of this
+module yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.grid import resolve_device
+from .dispersion import Dispersion
+from . import rays
+
+__all__ = ["FrozenResult", "raytrace_frozen", "ring_ics"]
+
+
+class FrozenResult(NamedTuple):
+    x: torch.Tensor            # (nframes, 2, Np) coordinate-first
+    k: torch.Tensor            # (nframes, 2, Np)
+    t: torch.Tensor            # (nframes,) float64 on the host
+    omega: torch.Tensor        # (nframes, Np) intrinsic frequency
+    omega_abs0: torch.Tensor   # (Np,) initial absolute frequency
+    omega_abs: torch.Tensor    # (nframes, Np)
+
+    @property
+    def conservation_error(self):
+        """max |dOmega_abs / Omega_abs(0)| per frame — the
+        SW_zero_background_raytracing.m:85-132 metric."""
+        return torch.amax(torch.abs((self.omega_abs - self.omega_abs0[None])
+                                    / self.omega_abs0[None]), dim=-1)
+
+
+def ring_ics(n_packets: int, w0: float, disp: Dispersion, L=2 * np.pi,
+             seed: int = 146, *, device=None,
+             dtype: torch.dtype = torch.float32):
+    """Near-inertial ring ICs: |k| = sqrt((w0^2-1) f^2/Cg^2), equally
+    spaced angles, uniform random positions from ``np.random.default_rng``
+    (qgsw_raytrace.m:54-60). Returns x0, k0 as (2, Np) coordinate-first
+    tensors on `device` (None = the CUDA device; raises when there is
+    none)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    i = np.arange(1, n_packets + 1)
+    kr = np.sqrt((w0**2 - 1.0) * disp.f**2 / disp.Cg**2)
+    k0 = kr * np.stack([np.cos(2 * np.pi * i / n_packets),
+                        np.sin(2 * np.pi * i / n_packets)], 0)
+    x0 = rng.uniform(0.0, L, (2, n_packets))
+    return (torch.as_tensor(x0, dtype=dtype, device=device),
+            torch.as_tensor(k0, dtype=dtype, device=device))
+
+
+_STEPPERS = {
+    "symplectic": rays.symplectic_step,
+    "yoshida4": rays.yoshida4_step,
+    "rk4": rays.rk4_step,
+    "rk23": rays.rk23_step,
+}
+
+
+def raytrace_frozen(flow, x0, k0, disp: Dispersion, dt: float, nsteps: int,
+                    save_every: int = 1, stepper: str = "symplectic"
+                    ) -> FrozenResult:
+    """Integrate packets through a steady flow and collect the
+    conservation diagnostics. Runs on the device of x0."""
+    step = _STEPPERS[stepper]
+    xs, ks, ts = rays.integrate_rays(
+        x0, k0, dt, nsteps, lambda x, k, t: step(x, k, dt, disp, flow),
+        save_every=save_every)
+
+    def abs_at(x, k):
+        return disp.absolute_frequency(k, flow.at(x[0], x[1]).uv)
+
+    om_abs0 = abs_at(x0, k0)
+    nframes = xs.shape[0]
+    empty = x0.new_zeros((0, x0.shape[-1]))
+    # frame by frame: the stencil gather of one frame is already
+    # 36 * 6 values per packet
+    om = (torch.stack([disp.omega(ks[j]) for j in range(nframes)])
+          if nframes else empty)
+    om_abs = (torch.stack([abs_at(xs[j], ks[j]) for j in range(nframes)])
+              if nframes else empty)
+    return FrozenResult(x=xs, k=ks, t=ts, omega=om, omega_abs0=om_abs0,
+                        omega_abs=om_abs)

@@ -1,21 +1,41 @@
-"""One-layer quasi-geostrophic building blocks.
+"""One-layer quasi-geostrophic pseudo-spectral solver.
 
-Counterpart of the initial-condition, inversion and diagnostic functions
-of swraytracing_tpu/models/qg.py (the solver inlined in
-qgsw_raytrace.m): PV inversion psi_k = -q_k / (K_d^2 + K^2) (:271), the
-random-phase ring initial PV normalised to a maximum speed (:191-214),
-and the inertial-ring forcing mask (:216-220). The one-layer time stepper
-itself (`qg_step`, with forcing and the exponential filter) is not part
-of this module yet; the two-layer solver (qg2.py) shares
-`initial_q_ring`.
+Counterpart of swraytracing_tpu/models/qg.py (the solver inlined in
+qgsw_raytrace.m):
+  * PV inversion psi_k = -q_k / (K_d^2 + K^2)            (:271)
+  * pseudo-spectral Jacobian                              (:272-283)
+  * AB3 time stepping with forward-Euler / AB2 bootstrap  (:121-136)
+  * exponential spectral filter applied every step        (:137, :222-230)
+  * beta, linear drag, inertial-ring surface forcing      (:285, :216-220)
+  * random-phase ring initial PV normalised to max speed  (:191-214)
 
-`initial_q_ring`'s chained comparison `k_min^2 < K2 <= k_max^2`
-(qgsw_raytrace.m:202) is always true in MATLAB, so the reference's "ring"
-actually fills the whole square |k|,|l| <= k_max; pass `ring=False` to
-reproduce that.
+The state keeps `t` and `step` on the host (Python float and int), as the
+two-layer solver does: the Euler / AB2 / AB3 choice is a Python branch and
+costs no device synchronisation. The static forcing and the per-step
+filter are host numpy arrays on `QGParams`; the stepping functions use
+its cached device view, so no step uploads them.
+
+Reference quirks and how they are treated:
+  * qgsw_raytrace.m:285 adds `r_drag*K2` and the forcing as *constants*
+    (missing `.*qk`), i.e. a static spectral forcing rather than drag; and
+    the Jacobian enters with a reversed advection sign relative to
+    u = -psi_y, v = psi_x. `reference_quirks=True` reproduces both exactly,
+    including the fact that the literal committed RHS is violently
+    unstable. The default implements the evidently intended physics
+    q_t + J(psi, q) + beta v = forcing - r_drag * zeta.
+  * `initial_q_ring`'s chained comparison `k_min^2 < K2 <= k_max^2`
+    (qgsw_raytrace.m:202) is always true in MATLAB, so the reference's
+    "ring" actually fills the whole square |k|,|l| <= k_max; pass
+    `ring=False` to reproduce that.
+
+`simulate_qg_particles` (passive particles in the RSW solvers' advection
+scheme) is not part of this module yet.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,13 +43,137 @@ import torch
 from ..ops.grid import SpectralGrid, complex_dtype, resolve_device
 from ..ops import spectral as sp
 
-__all__ = ["initial_q_ring", "inertial_ring_forcing", "max_speed"]
+__all__ = [
+    "QGParams",
+    "QGState",
+    "qg_rhs",
+    "qg_init",
+    "qg_step",
+    "simulate_qg",
+    "initial_q_ring",
+    "inertial_ring_forcing",
+    "max_speed",
+]
+
+
+class QGParamTensors(NamedTuple):
+    """Device view of a QGParams' arrays (None where the array is None)."""
+
+    forcing: torch.Tensor | None   # (nx, nky) real
+    filter: torch.Tensor | None    # (nx, nky) real
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class QGParams:
+    """Solver parameters. `forcing` and `filter` are host numpy arrays;
+    `tensors(device, dtype)` is the cached device view the stepping
+    functions use."""
+
+    Kd2: float                  # deformation wavenumber squared, f/Cg in ref
+    beta: float = 0.0
+    r_drag: float = 0.1
+    dt: float = 1e-3
+    forcing: np.ndarray | None = None   # (nx, nky) static spectral forcing
+    filter: np.ndarray | None = None    # (nx, nky) per-step spectral filter
+    dealias: bool = False               # reference uses no dealiasing
+    reference_quirks: bool = False
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def tensors(self, device, dtype: torch.dtype) -> QGParamTensors:
+        key = (torch.device(device), dtype)
+        hit = self._cache.get(key)
+        if hit is None:
+            def real(a):
+                return None if a is None else torch.as_tensor(
+                    np.asarray(a), dtype=dtype, device=key[0])
+
+            hit = QGParamTensors(forcing=real(self.forcing),
+                                 filter=real(self.filter))
+            self._cache[key] = hit
+        return hit
+
+
+@dataclasses.dataclass
+class QGState:
+    qk: torch.Tensor        # (nx, nky) complex PV spectrum
+    rhs_m1: torch.Tensor    # previous RHS (AB history)
+    rhs_m2: torch.Tensor    # RHS two steps back
+    t: float                # host scalar
+    step: int               # host scalar
 
 
 def _psik(qk, grid: SpectralGrid, Kd2):
     denom = Kd2 + grid.tensors(qk.device, sp._real_dtype(qk)).K2
     denom = torch.where(denom == 0, 1.0, denom)
     return -qk / denom
+
+
+def qg_rhs(qk, grid: SpectralGrid, p: QGParams):
+    """dq_k/dt. See the module docstring for the quirks switch."""
+    rd = sp._real_dtype(qk)
+    K2 = grid.tensors(qk.device, rd).K2
+    psik = _psik(qk, grid, p.Kd2)
+    Jk = sp.dealiased_jacobian(psik, qk, grid, dealias=p.dealias)
+    beta_term = p.beta * sp.ddx(psik, grid)
+    if p.reference_quirks:
+        # qgsw_raytrace.m:285 verbatim: dq = J - beta*psikx + r*K2 + F
+        dq = Jk - beta_term + p.r_drag * K2.to(qk.dtype)
+    else:
+        # q_t = -J(psi,q) - beta psi_x - r_drag * zeta,  zeta_k = -K2 psi_k
+        drag = p.r_drag * K2 * psik
+        dq = -Jk - beta_term + drag
+    forcing = p.tensors(qk.device, rd).forcing
+    if forcing is not None:
+        dq = dq + forcing
+    return dq
+
+
+def qg_init(qk0: torch.Tensor, t0: float = 0.0) -> QGState:
+    z = torch.zeros_like(qk0)
+    return QGState(qk=qk0, rhs_m1=z, rhs_m2=z, t=float(t0), step=0)
+
+
+def qg_step(state: QGState, grid: SpectralGrid, p: QGParams) -> QGState:
+    """One AB3 step with Euler/AB2 bootstrap (qgsw_raytrace.m:121-137),
+    then the spectral filter. Returns a new state; the input is not
+    modified."""
+    Qn = qg_rhs(state.qk, grid, p)
+    dt = p.dt
+    if state.step == 0:
+        dq = dt * Qn
+    elif state.step == 1:
+        dq = dt / 2.0 * (3.0 * Qn - state.rhs_m1)
+    else:
+        dq = dt / 12.0 * (23.0 * Qn - 16.0 * state.rhs_m1
+                          + 5.0 * state.rhs_m2)
+    qk = state.qk + dq
+    filt = p.tensors(qk.device, sp._real_dtype(qk)).filter
+    if filt is not None:
+        qk = qk * filt
+    return QGState(qk=qk, rhs_m1=Qn, rhs_m2=state.rhs_m1,
+                   t=state.t + dt, step=state.step + 1)
+
+
+def simulate_qg(state: QGState, grid: SpectralGrid, p: QGParams,
+                nsteps: int, save_every: int = 1):
+    """Run nsteps, saving the PV spectrum every save_every steps. Returns
+    (final_state, qk_frames (nframes, nx, nky), t_frames (nframes,)
+    float64 on the host)."""
+    nframes = nsteps // save_every
+    qks, ts = [], []
+    for _ in range(nframes):
+        for _ in range(save_every):
+            state = qg_step(state, grid, p)
+        qks.append(state.qk)
+        ts.append(state.t)
+    qk_frames = (torch.stack(qks) if qks
+                 else state.qk.new_zeros((0,) + state.qk.shape))
+    return state, qk_frames, torch.tensor(ts, dtype=torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# Initial conditions and forcing
+# ---------------------------------------------------------------------------
 
 
 def initial_q_ring(seed: int, grid: SpectralGrid, U_g: float, Kd2: float,

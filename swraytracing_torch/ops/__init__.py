@@ -1,4 +1,5 @@
-from . import grid, spectral, march_window
+from . import grid, spectral, interp, march_window, march_rays
 from .grid import SpectralGrid
 
-__all__ = ["grid", "spectral", "march_window", "SpectralGrid"]
+__all__ = ["grid", "spectral", "interp", "march_window", "march_rays",
+           "SpectralGrid"]

@@ -1,0 +1,196 @@
+"""Off-grid field evaluation: periodic Lagrangian stencil interpolation.
+
+Counterpart of the stencil path of swraytracing_tpu/ops/interp.py, the
+vectorised replacement for the reference's per-particle double loop
+(qg_flow_ray_trace/interpolate.m:12-50 and its duplicates). The algorithm
+is identical — order-`order` 2-D Lagrangian interpolation on a
+(2*order+2)^2 stencil with periodic wraparound (Durran Ch. 6) — with all
+packets and all fields evaluated in one batched gather and contraction.
+
+Layout: every per-packet array keeps the packet axis LAST — stencil
+indices/weights are (S, Np) and gathered values (nf, S, S, Np) — as in the
+JAX package, so the two compare like with like.
+
+Notes vs the reference:
+  * The reference's weight formula carries a spurious (-1) sign in each
+    1-D basis (denominator (j-i) instead of (i-j), interpolate.m:37-38)
+    that cancels in the 2-D product; the sign-correct basis is used here.
+  * The reference adds bump=1e-10 to avoid "NaNs" (interpolate.m:13); the
+    product-form basis has no division by (a - j), so no bump is needed.
+
+The gather is ONE index_select over all S*S*Np stencil nodes; the JAX
+package chunks the packet axis to get around a TPU gather limit, which a
+GPU does not have. The (nf, S, S, Np) intermediate and its weighted copy
+take 2 * nf * S * S * Np elements: 1.8 GB in float32 at nf=6, order 2 and
+2^20 packets.
+
+Gradients: exact w.r.t. both positions (piecewise-polynomial) and field
+values (linear), via autograd; the transpose of the gather is a
+scatter-add.
+
+The windowed gather path (`build_windows`, `interp_windowed`) and
+`interpolate_cubic` are not ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .grid import SpectralGrid
+
+__all__ = [
+    "lagrange_weights",
+    "stencil_and_weights",
+    "cell_and_weights",
+    "interp_stencil_apply",
+    "interpolate",
+    "interpolate_stack",
+    "build_windows",
+    "interp_windowed",
+    "interpolate_cubic",
+]
+
+
+def _lagrange_denominators(order: int) -> list[float]:
+    offsets = range(-order, order + 2)
+    denom = []
+    for i in offsets:
+        d = 1.0
+        for j in offsets:
+            if j != i:
+                d *= (i - j)
+        denom.append(d)
+    return denom
+
+
+def lagrange_weights(frac: torch.Tensor, order: int = 2) -> torch.Tensor:
+    """1-D Lagrange basis weights at fractional cell position `frac`.
+
+    Args:
+      frac: (...,) tensor in [0, 1), position within the cell relative to
+        the left node.
+      order: stencil half-width parameter; stencil nodes are the integers
+        -order .. order+1 (order=2 -> 6-point, the reference's Iord=2,
+        interpolate.m:12).
+    Returns:
+      (2*order+2, ...) weights (node axis FIRST), summing to 1 over it.
+    Each weight is the product of (frac - j) over the other nodes j in
+    ascending order, divided by its constant denominator; the ray-march
+    kernel (kernels/csrc/march_rays.cu) forms it the same way.
+    """
+    offsets = list(range(-order, order + 2))
+    denom = _lagrange_denominators(order)
+    a = [frac - o for o in offsets]
+    ws = []
+    for idx in range(len(offsets)):
+        p = None
+        for j in range(len(offsets)):
+            if j == idx:
+                continue
+            p = a[j] if p is None else p * a[j]
+        ws.append(p / denom[idx])
+    return torch.stack(ws, dim=0)
+
+
+def _cell_coords(x, y, grid: SpectralGrid):
+    """Fractional grid coordinates mod(x / dx, n) and their floors. The
+    divisor is a 0-dim tensor: on a CUDA tensor PyTorch turns a division
+    by a Python scalar into a multiplication by its reciprocal, which can
+    put a packet beside a cell edge into the other cell."""
+    xl = torch.remainder(x / x.new_full((), grid.dx), grid.nx)
+    yl = torch.remainder(y / y.new_full((), grid.dy), grid.ny)
+    return xl, yl, torch.floor(xl), torch.floor(yl)
+
+
+def stencil_and_weights(x, y, grid: SpectralGrid, order: int = 2):
+    """Periodic stencil indices and separable weights for packet
+    positions.
+
+    Args:
+      x, y: (Np,) positions (any real values; periodic wrap applied).
+    Returns:
+      (ix, iy, wx, wy): ix, iy int32 (S, Np) grid indices; wx, wy (S, Np).
+    """
+    xl, yl, i0, j0 = _cell_coords(x, y, grid)
+    wx = lagrange_weights(xl - i0, order)
+    wy = lagrange_weights(yl - j0, order)
+    offsets = torch.arange(-order, order + 2, dtype=torch.int32,
+                           device=x.device)[:, None]
+    # floored integer modulo: floor(mod) can be exactly n (a tiny negative
+    # x), and i0 + offset runs below 0 and past n
+    ix = torch.remainder(i0[None].to(torch.int32) + offsets, grid.nx)
+    iy = torch.remainder(j0[None].to(torch.int32) + offsets, grid.ny)
+    return ix, iy, wx, wy
+
+
+def cell_and_weights(x, y, grid: SpectralGrid, order: int = 2):
+    """Cell indices and separable weights only: one (i0, j0) per packet,
+    not the (S, Np) per-node index arrays.
+
+    Returns:
+      (i0, j0, wx, wy): i0, j0 int32 (Np,) cell indices in [0, n);
+      wx, wy (S, Np) Lagrange weights.
+    """
+    xl, yl, i0, j0 = _cell_coords(x, y, grid)
+    wx = lagrange_weights(xl - i0, order)
+    wy = lagrange_weights(yl - j0, order)
+    # floor of mod can still hit n exactly from float rounding at the
+    # right edge; fold it back.
+    i0 = torch.remainder(i0.to(torch.int32), grid.nx)
+    j0 = torch.remainder(j0.to(torch.int32), grid.ny)
+    return i0, j0, wx, wy
+
+
+def interp_stencil_apply(F, ix, iy, wx, wy):
+    """Apply a precomputed stencil to stacked fields.
+
+    Args:
+      F: (nf, nx, ny) or (nx, ny) fields.
+      ix, iy: (S, Np) int32 indices; wx, wy: (S, Np) weights.
+    Returns:
+      (nf, Np) or (Np,) interpolated values.
+    """
+    single = F.dim() == 2
+    if single:
+        F = F[None]
+    nf, nx, ny = F.shape
+    S, Np = ix.shape
+    flat_idx = ix[:, None, :] * ny + iy[None, :, :]          # (S, S, Np)
+    w2 = wx[:, None, :] * wy[None, :, :]                     # (S, S, Np)
+    vals = F.reshape(nf, nx * ny).index_select(1, flat_idx.reshape(-1))
+    out = (vals.reshape(nf, S, S, Np) * w2[None]).sum((1, 2))
+    return out[0] if single else out
+
+
+def interpolate(F, x, y, grid: SpectralGrid, order: int = 2):
+    """Interpolate a single field to packet positions: the reference's
+    `interpolate(x, y, F, dx, dy)` (qg_flow_ray_trace/interpolate.m),
+    vectorised over packets."""
+    ix, iy, wx, wy = stencil_and_weights(x, y, grid, order)
+    return interp_stencil_apply(F, ix, iy, wx, wy)
+
+
+def interpolate_stack(F, x, y, grid: SpectralGrid, order: int = 2):
+    """Interpolate a stack of fields (nf, nx, ny) at shared positions —
+    the reference calls `interpolate` 12 times per evaluation
+    (interpolate_U.m:5-17); here the stencil is computed once."""
+    ix, iy, wx, wy = stencil_and_weights(x, y, grid, order)
+    return interp_stencil_apply(F, ix, iy, wx, wy)
+
+
+def _not_ported(name: str, item: str):
+    return NotImplementedError(f"{name} is not ported yet: ROADMAP item "
+                               f"{item}")
+
+
+def build_windows(F, order: int = 2):
+    raise _not_ported("interp.build_windows (the windowed gather path)", "A8")
+
+
+def interp_windowed(W, nf, x, y, grid: SpectralGrid, order: int = 2):
+    raise _not_ported("interp.interp_windowed (the windowed gather path)",
+                      "A8")
+
+
+def interpolate_cubic(F, x, y, grid: SpectralGrid):
+    raise _not_ported("interp.interpolate_cubic", "A12")

@@ -24,16 +24,18 @@ packet's current cell inside the wider window; positions that drift past
 the margin are clamped to the nearest in-window stencil and counted in
 the `overflow` output (callers assert it stays zero; see required_margin).
 
-Two device kernels, hand-written CUDA under kernels/csrc, each with its
+Three device kernels, hand-written CUDA under kernels/csrc, each with its
 plain PyTorch version beside its wrapper here:
 
-  march_cuda      (csrc/march.cuh)      plain: march_reference
-  transpose_cuda  (csrc/transpose.cu)  plain: transpose_reference
+  march_cuda          (csrc/march.cuh)          plain: march_reference
+  transpose_cuda      (csrc/transpose.cu)       plain: transpose_reference
+  build_windows_cuda  (csrc/build_windows.cu)   plain: build_windows_reference
 
-`fused_march` and `window_transpose` are the differentiable entry points.
-They pick by the device of the tensor they are given: a CPU tensor goes
-to the plain version, a CUDA tensor to the kernel. Nothing falls back: on
-a CUDA tensor the kernel launches or the call raises.
+`fused_march`, `window_transpose` and `build_windows_fused` are the
+differentiable entry points. They pick by the device of the tensor they
+are given: a CPU tensor goes to the plain version, a CUDA tensor to the
+kernel. Nothing falls back: on a CUDA tensor the kernel launches or the
+call raises.
 
 Layouts: packet windows are (K, Np), or (Np, K) gather rows when
 `tiles_transposed`. The CUDA kernel takes both through strides.
@@ -51,6 +53,9 @@ __all__ = [
     "required_margin",
     "max_margin",
     "build_margin_windows",
+    "build_windows_reference",
+    "build_windows_cuda",
+    "build_windows_fused",
     "build_gather_windows",
     "packet_cells",
     "gather_packet_windows",
@@ -94,8 +99,10 @@ class MarchSpec(NamedTuple):
     # stacked on the K axis ((2K, Np), or (Np, 2K) tiles_transposed).
     # fused_march's pw2 argument is then a dummy.
     combined_gather: bool = False
-    # One-kernel window build. Not available yet: build_gather_windows
-    # raises NotImplementedError when it is set.
+    # Build the (ncells, K) window array in ONE kernel
+    # (build_windows_fused) instead of shifted copies + the tiled
+    # transpose: the window array is written once and never re-read.
+    # Takes effect with tiles_transposed; same output bit for bit.
     fused_build: bool = False
 
     @property
@@ -138,37 +145,56 @@ def max_margin(nx: int, order: int = 2) -> int:
 # Window build + gather
 # ---------------------------------------------------------------------------
 
+def _check_window_fits(nx: int, ny: int, spec: MarchSpec):
+    if spec.order + 1 + spec.margin > min(nx, ny):
+        raise ValueError(
+            f"march window (margin={spec.margin}, SW={spec.SW}) exceeds the "
+            f"{nx}x{ny} periodic grid; cap the margin with "
+            "required_margin(..., nx=) / max_margin")
+
+
+def _shifted_views(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
+    """View [f, sx, sy, i, j] = F[f, i + sx - lo, j + sy - lo] (periodic,
+    lo = order + margin) of the periodically padded fields."""
+    F = F[:spec.nf]  # grad_from_interp (nf=2) keeps only (u, v)
+    nf, nx, ny = F.shape
+    _check_window_fits(nx, ny, spec)
+    lo = spec.order + spec.margin
+    hi = spec.order + 1 + spec.margin
+    Fp = torch.cat([F[:, :, ny - lo:], F, F[:, :, :hi]], dim=2)
+    Fp = torch.cat([Fp[:, nx - lo:], Fp, Fp[:, :hi]], dim=1)
+    return Fp.unfold(1, nx, 1).unfold(2, ny, 1)
+
+
 def build_margin_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
     """(nf, nx, ny) fields -> (K, nx*ny) cell-window array W:
     W[(f*SW + sx)*SW + sy, i*ny + j] = F[f, i + sx - (order+margin),
     j + sy - (order+margin)] (periodic). Rows are shifted flattened
     copies of the fields, written by one strided copy."""
-    F = F[:spec.nf]  # grad_from_interp (nf=2) keeps only (u, v)
-    nf, nx, ny = F.shape
-    SW = spec.SW
-    lo = spec.order + spec.margin
-    hi = spec.order + 1 + spec.margin
-    if lo > min(nx, ny) or hi > min(nx, ny):
-        raise ValueError(
-            f"march window (margin={spec.margin}, SW={SW}) exceeds the "
-            f"{nx}x{ny} periodic grid; cap the margin with "
-            "required_margin(..., nx=) / max_margin")
-    Fp = torch.cat([F[:, :, ny - lo:], F, F[:, :, :hi]], dim=2)
-    Fp = torch.cat([Fp[:, nx - lo:], Fp, Fp[:, :hi]], dim=1)
-    # view [f, sx, sy, i, j] = Fp[f, sx + i, sy + j]
-    shifted = Fp.unfold(1, nx, 1).unfold(2, ny, 1)
-    return shifted.reshape(nf * SW * SW, nx * ny)
+    shifted = _shifted_views(F, spec)
+    nx, ny = shifted.shape[-2:]
+    return shifted.reshape(spec.K, nx * ny)
+
+
+def build_windows_reference(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
+    """Plain version of build_windows_cuda: (nf, nx, ny) fields ->
+    (nx*ny, K) gather rows, W[i*ny + j, (f*SW + sx)*SW + sy] =
+    F[f, i + sx - (order+margin), j + sy - (order+margin)] (periodic),
+    by one strided copy of the padded fields. Equal to
+    build_margin_windows(F, spec).T bit for bit."""
+    shifted = _shifted_views(F, spec)
+    nx, ny = shifted.shape[-2:]
+    return shifted.permute(3, 4, 0, 1, 2).reshape(nx * ny, spec.K)
 
 
 def build_gather_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
     """Cell-window array in the layout gather_packet_windows expects:
     (K, ncells) when tiles_transposed=False, else (ncells, K) for
-    contiguous row gathers (through window_transpose: the transpose
-    kernel on a CUDA tensor, for any ncells)."""
-    if spec.fused_build:
-        raise NotImplementedError(
-            "the one-kernel window build (MarchSpec.fused_build) is not "
-            "ported yet: ROADMAP item B3")
+    contiguous row gathers: in one pass with spec.fused_build
+    (build_windows_fused), else through window_transpose (the transpose
+    kernel on a CUDA tensor). Both serve any nx, ny."""
+    if spec.tiles_transposed and spec.fused_build:
+        return build_windows_fused(F, spec)
     W = build_margin_windows(F, spec)
     if not spec.tiles_transposed:
         return W
@@ -437,7 +463,7 @@ def march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
 
 
 # ---------------------------------------------------------------------------
-# CUDA wrappers (kernels/csrc/march.cuh, kernels/csrc/transpose.cu)
+# CUDA wrappers (kernels/csrc/march.cuh, transpose.cu, build_windows.cu)
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -553,9 +579,77 @@ def transpose_cuda(W: torch.Tensor) -> torch.Tensor:
 transpose_cuda.launches = 0
 
 
+def build_windows_cuda(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
+    """One-kernel window build on the card (kernels/csrc/build_windows.cu):
+    contiguous (>= nf, nx, ny) float32/float64 CUDA fields -> contiguous
+    (nx*ny, K) gather rows, as build_windows_reference, for any nx, ny
+    and margin that fits the grid. The kernel wraps the periodic indices
+    itself; no padded copy is made. Launches on the current stream and
+    does not synchronise. Counts its launches in
+    `build_windows_cuda.launches`."""
+    from .. import kernels
+
+    if F.dim() != 3 or F.dtype not in _DTYPE_CODE:
+        raise ValueError("build_windows_cuda takes (nf, nx, ny) float32/"
+                         f"float64 fields; got {F.dtype} {tuple(F.shape)}")
+    _require_cuda("build_windows_cuda", "F", F, F.dtype, F.shape)
+    F = F[:spec.nf]  # a leading slice of a contiguous tensor: contiguous
+    nf, nx, ny = F.shape
+    if nf != spec.nf:
+        raise ValueError(f"build_windows_cuda: spec.nf={spec.nf} but F holds "
+                         f"{nf} fields")
+    _check_window_fits(nx, ny, spec)
+    out = torch.empty((nx * ny, spec.K), dtype=F.dtype, device=F.device)
+    if out.numel() == 0:
+        return out
+    lib = kernels.load()
+    with torch.cuda.device(F.device):
+        err = lib.swr_build_windows(
+            _DTYPE_CODE[F.dtype], F.data_ptr(), out.data_ptr(), nf, nx, ny,
+            spec.SW, spec.order + spec.margin,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "swr_build_windows")
+    build_windows_cuda.launches += 1
+    return out
+
+
+build_windows_cuda.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Differentiable entry points
 # ---------------------------------------------------------------------------
+
+class _BuildWindowsFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, F, spec):
+        ctx.spec = spec
+        ctx.f_meta = (F.shape, F.dtype, F.device)
+        if F.is_cuda:
+            return build_windows_cuda(F.contiguous(), spec)
+        return build_windows_reference(F, spec)
+
+    @staticmethod
+    def backward(ctx, ct):
+        # The build is linear in F: its cotangent is the linear transpose
+        # of the plain build (a periodic scatter-add), whatever F held.
+        shape, dtype, device = ctx.f_meta
+        with torch.enable_grad():
+            leaf = torch.zeros(shape, dtype=dtype, device=device,
+                               requires_grad=True)
+            (dF,) = torch.autograd.grad(
+                build_windows_reference(leaf, ctx.spec), leaf, ct)
+        return dF, None
+
+
+def build_windows_fused(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
+    """Differentiable one-pass window build (nf, nx, ny) -> (ncells, K):
+    the build kernel on a CUDA tensor, build_windows_reference on a CPU
+    tensor. The backward is the linear transpose of the plain build on
+    either device (there is no backward kernel, as in the JAX package)."""
+    return _BuildWindowsFused.apply(F, spec)
+
+
 
 class _WindowTranspose(torch.autograd.Function):
     @staticmethod

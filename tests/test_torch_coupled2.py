@@ -17,7 +17,8 @@ from swraytracing_torch.models.qg2 import QG2State
 from swraytracing_torch.ops import march_window as tmw
 from swraytracing_torch import convert
 
-from torch_parity import to_numpy, assert_close, assert_equal
+from torch_parity import (to_numpy, assert_close, assert_equal,
+                          jax_carry_tree)
 
 CFG = dict(nx=32, n_packets=256, window_min_np=1, T_Fr_days=20.0,
            packet_delay_days=0.05, packet_steps_per_save=4)
@@ -39,21 +40,6 @@ def _setups(**kw):
                                 dtype=torch.float64)
     return (jc2.Coupled2Config(**cfg), js, jc,
             tc2.Coupled2Config(**cfg), ts, tc)
-
-
-def _jax_carry_tree(c):
-    """The JAX carry as a plain dict of numpy arrays."""
-    fs = c.flow_state
-    return {
-        "flow_state": {"qk": np.asarray(fs.qk), "rhs_m1": np.asarray(fs.rhs_m1),
-                       "rhs_m2": np.asarray(fs.rhs_m2), "t": np.asarray(fs.t),
-                       "step": np.asarray(fs.step)},
-        "packet_x": np.asarray(c.packet_x),
-        "packet_k": np.asarray(c.packet_k),
-        "prev_fields": np.asarray(c.prev_fields),
-        "prev_win": None if c.prev_win is None else np.asarray(c.prev_win),
-        "overflow": None if c.overflow is None else np.asarray(c.overflow),
-    }
 
 
 def _assert_carry_close(tc, jc, qk_scale):
@@ -134,7 +120,7 @@ def test_chunk_from_converted_jax_carry():
     jcfg, js, jc, tcfg, ts, _ = _setups(stepper="symplectic")
     run = jax.jit(lambda c: jc2.run_coupled2_chunk(c, js, jcfg, 1))
     jc1, _ = run(jc)                       # 4 steps in JAX
-    handed = convert.carry_from_numpy(_jax_carry_tree(jc1), device="cpu",
+    handed = convert.carry_from_numpy(jax_carry_tree(jc1), device="cpu",
                                       dtype=torch.float64)
     assert isinstance(handed.flow_state, QG2State)
     assert handed.flow_state.step == 4 and handed.overflow.dtype == torch.int32
@@ -201,11 +187,25 @@ def test_unported_paths_raise_and_name_their_roadmap_item():
     _, _, _, tcfg, ts, tc = _setups()
     with pytest.raises(NotImplementedError, match="A10"):
         tc2.run_coupled2_chunk(tc, ts, tcfg, 1, remat=True)
-    # one-kernel window build
-    cfgb = tcfg._replace(march_fused_build=True)
-    sb, cb = tc2.setup_coupled2(cfgb, device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tc2.run_coupled2_chunk(cb, sb, cfgb, 1)
+
+
+def test_fused_build_chunk_matches_jax_and_two_pass():
+    """march_fused_build=True: the one-pass window build gives the chunk
+    the same windows, so the same packets, as the two-pass route and as
+    JAX."""
+    jcfg, js, jc, tcfg, ts, tc = _setups(march_fused_build=True)
+    assert ts.march.fused_build and js.march.fused_build
+    _, (jpx, jpk, _) = jax.jit(
+        lambda c: jc2.run_coupled2_chunk(c, js, jcfg, 1))(jc)
+    tc1, (tpx, tpk, _) = tc2.run_coupled2_chunk(tc, ts, tcfg, 1)
+    assert_close(tpx, jpx, atol=ATOL_PACKETS)
+    assert_close(tpk, jpk, atol=ATOL_PACKETS)
+    _, _, _, pcfg, ps, pc = _setups()
+    pc1, (ppx, ppk, _) = tc2.run_coupled2_chunk(pc, ps, pcfg, 1)
+    assert_equal(tpx, to_numpy(ppx))
+    assert_equal(tpk, to_numpy(ppk))
+    assert_equal(tc1.prev_win, to_numpy(pc1.prev_win))
+    assert int(tc1.overflow) == 0
 
 
 def test_prepare_carry_windows_and_mismatched_carry():

@@ -1,6 +1,6 @@
-"""swraytracing_torch.ops.march_window (the module that holds the two
-CUDA kernels) against swraytracing_tpu.ops.pallas_window on the same numpy
-inputs (CPU, float64). On the CPU the port's wrappers run the kernels'
+"""swraytracing_torch.ops.march_window (the module that holds the march,
+transpose and window-build CUDA kernels) against
+swraytracing_tpu.ops.pallas_window on the same numpy inputs (CPU, float64). On the CPU the port's wrappers run the kernels'
 plain versions; the JAX side runs its XLA reference and, where marked,
 the Pallas kernels in interpret mode."""
 
@@ -98,10 +98,70 @@ def test_build_gather_windows_layouts_and_limits():
     tr = tmw.build_gather_windows(F1, ts._replace(tiles_transposed=True))
     assert tr.is_contiguous()
     assert_equal(tr, to_numpy(W).T)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tmw.build_gather_windows(F1, ts._replace(fused_build=True))
-    with pytest.raises(ValueError, match="exceeds"):
-        tmw.build_margin_windows(F1, ts._replace(margin=40))
+    # the one-pass build: same rows, and only with transposed tiles
+    fused = ts._replace(fused_build=True)
+    assert_equal(tmw.build_gather_windows(F1, fused), to_numpy(W))
+    assert_equal(tmw.build_gather_windows(
+        F1, fused._replace(tiles_transposed=True)), to_numpy(W).T)
+    for build in (tmw.build_margin_windows, tmw.build_windows_reference,
+                  tmw.build_windows_fused):
+        with pytest.raises(ValueError, match="exceeds"):
+            build(F1, ts._replace(margin=40))
+
+
+@pytest.mark.parametrize("nf", [2, 6])
+@pytest.mark.parametrize("margin", [1, 2, 3])
+def test_build_windows_fused_equal(nf, margin):
+    """The one-pass window build against the TPU kernel itself
+    (build_windows_fused with the Pallas kernel in interpret mode) and
+    against the two-pass route: exact, values are only copied."""
+    js, ts = _specs(nf=nf, margin=margin, grad_from_interp=nf == 2,
+                    tiles_transposed=True, fused_build=True, interpret=True)
+    assert js.use_pallas and js.fused_build
+    F1 = _state(seed=margin)[0]
+    want = jpw.build_windows_fused(to_jax(F1), js)
+    for build in (tmw.build_windows_fused, tmw.build_windows_reference,
+                  tmw.build_gather_windows):
+        got = build(to_torch(F1), ts)
+        assert got.shape == (NX * NX, ts.K) and got.is_contiguous()
+        assert_equal(got, want)
+    assert_equal(got, to_numpy(tmw.build_margin_windows(to_torch(F1), ts)).T)
+
+
+def test_build_windows_fused_non_square():
+    """No side needs to be a multiple of anything (the TPU kernel falls
+    back to the two-pass route when nx is not a multiple of its rows)."""
+    ts = tmw.MarchSpec(nx=13, ny=22, dx=0.1, dy=0.2, f=3.0, Cg=1.0, margin=2,
+                       nf=2, grad_from_interp=True, tiles_transposed=True,
+                       fused_build=True)
+    F = torch.from_numpy(np.random.default_rng(5).standard_normal((6, 13, 22)))
+    got = tmw.build_windows_fused(F, ts)
+    assert got.shape == (13 * 22, ts.K)
+    assert torch.equal(got, tmw.build_margin_windows(F, ts).t())
+    # row of cell (i, j), component (f, sx, sy): F[f, i+sx-lo, j+sy-lo]
+    lo, SW = ts.order + ts.margin, ts.SW
+    i, j, f, sx, sy = 12, 0, 1, 0, SW - 1
+    assert got[i * 22 + j, (f * SW + sx) * SW + sy] == \
+        F[f, (i + sx - lo) % 13, (j + sy - lo) % 22]
+
+
+def test_build_windows_fused_gradient():
+    """Its backward is the linear transpose of the plain build, as the JAX
+    package's custom VJP (tests/test_pallas_window.py)."""
+    js, ts = _specs(nf=2, margin=2, grad_from_interp=True,
+                    tiles_transposed=True, fused_build=True, interpret=True)
+    F = np.random.default_rng(3).standard_normal((2, NX, NX))
+    want = jax.grad(
+        lambda F_: jnp.sum(jnp.sin(jpw.build_windows_fused(F_, js))))(
+            to_jax(F))
+    Ft = to_torch(F).requires_grad_(True)
+    torch.sin(tmw.build_windows_fused(Ft, ts)).sum().backward()
+    assert_close(Ft.grad, want, rtol=1e-13, atol=1e-13)
+    # and it is the gradient of the two-pass route
+    Fr = to_torch(F).requires_grad_(True)
+    torch.sin(tmw.build_gather_windows(
+        Fr, ts._replace(fused_build=False))).sum().backward()
+    assert_close(Ft.grad, to_numpy(Fr.grad), rtol=1e-13, atol=1e-13)
 
 
 def test_margins_equal():
@@ -403,5 +463,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tmw.march_cuda(*tin, 0.1, ts)
     with pytest.raises(ValueError, match="CUDA"):
         tmw.transpose_cuda(torch.zeros(4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tmw.build_windows_cuda(torch.zeros(6, NX, NX, dtype=torch.float64),
+                               ts)
     assert tmw.march_cuda.launches == 0
     assert tmw.transpose_cuda.launches == 0
+    assert tmw.build_windows_cuda.launches == 0

@@ -9,9 +9,13 @@ import pytest
 import torch
 
 from swraytracing_torch import kernels
+from swraytracing_torch.models.coupled import CoupledConfig, setup_coupled
 from swraytracing_torch.models.coupled2 import Coupled2Config, setup_coupled2
+from swraytracing_torch.models.dispersion import Dispersion
+from swraytracing_torch.models.frozen import ring_ics
 from swraytracing_torch.models.qg2 import initial_q2_ring
 from swraytracing_torch.ops.grid import SpectralGrid, resolve_device
+from swraytracing_torch.ops import march_rays as mr
 from swraytracing_torch.ops import march_window as mw
 from swraytracing_torch import convert
 
@@ -28,7 +32,11 @@ def _run(code):
 @pytest.mark.parametrize("module", [
     "swraytracing_torch", "swraytracing_torch.convert",
     "swraytracing_torch.kernels", "swraytracing_torch.models.coupled2",
-    "swraytracing_torch.ops.march_window", "chip_smoke"])
+    "swraytracing_torch.ops.march_window", "chip_smoke",
+    "swraytracing_torch.models.coupled", "swraytracing_torch.models.qg",
+    "swraytracing_torch.ops.interp", "swraytracing_torch.models.fields",
+    "swraytracing_torch.models.rays", "swraytracing_torch.ops.march_rays",
+    "swraytracing_torch.models.frozen"])
 def test_import_pulls_in_no_jax(module):
     """Importing the port (and chip_smoke, import only) loads neither jax,
     flax nor the JAX package, and builds or loads no kernel."""
@@ -58,12 +66,21 @@ def test_sources_name_no_jax_import():
 
 def test_kernel_sources_ship_with_the_package():
     names = [s.name for s in kernels.sources()]
-    assert names == ["march_f32.cu", "march_f64.cu", "transpose.cu"]
+    assert names == ["build_windows.cu", "march_f32.cu", "march_f64.cu",
+                     "march_rays.cu", "transpose.cu"]
     csrc = kernels.sources()[0].parent
     for s in kernels.sources():
         assert 'extern "C"' in s.read_text()
-    assert "__global__" in (csrc / "march.cuh").read_text()
-    assert "__global__" in (csrc / "transpose.cu").read_text()
+    for name in ("march.cuh", "transpose.cu", "build_windows.cu",
+                 "march_rays.cu"):
+        assert "__global__" in (csrc / name).read_text(), name
+    # every header a source includes ships too (and enters the build's hash)
+    headers = {h.name for h in csrc.glob("*.cuh")}
+    assert headers == {"march.cuh", "scalar.cuh"}
+    for src in csrc.iterdir():
+        for line in src.read_text().splitlines():
+            if line.startswith('#include "'):
+                assert line.split('"')[1] in headers, (src.name, line)
     assert "--use_fast_math" not in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
@@ -83,6 +100,10 @@ def test_no_device_argument_means_cuda_or_raise():
                         k_max=5)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.carry_from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        setup_coupled(CoupledConfig(nx=16, n_packets=8, window_min_np=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ring_ics(8, 2.0, Dispersion(f=3.0, Cg=1.0))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -107,7 +128,20 @@ def test_cuda_kernels_unreachable_from_cpu_tensors():
         mw.march_cuda(pw, pw, xk, oi, oj, 0.01, spec)
     with pytest.raises(ValueError, match="CUDA"):
         mw.transpose_cuda(W)
+    fused = spec._replace(tiles_transposed=True, fused_build=True)
+    assert torch.equal(mw.build_gather_windows(F, fused), W.t())
+    with pytest.raises(ValueError, match="CUDA"):
+        mw.build_windows_cuda(F, fused)
+    grid = SpectralGrid(nx=16, ny=16, Lx=16.0, Ly=16.0)
+    disp = Dispersion(f=3.0, Cg=1.0)
+    xN, kN = mr.march_rays(F, x, k, grid, disp, 0.01, 3)
+    ref = mr.march_rays_reference(F, x, k, grid, disp, 0.01, 3)
+    assert torch.equal(xN, ref[0]) and torch.equal(kN, ref[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        mr.march_rays_cuda(F, x, k, grid, disp, 0.01, 3)
     assert mw.march_cuda.launches == 0 and mw.transpose_cuda.launches == 0
+    assert mw.build_windows_cuda.launches == 0
+    assert mr.march_rays_cuda.launches == 0
     assert kernels._lib is None
 
 

@@ -62,3 +62,19 @@ def random_spectrum(rng, grid, batch=()):
     Nyquist modes masked), as numpy complex128 in the rfft2 layout."""
     f = rng.standard_normal(tuple(batch) + (grid.nx, grid.ny))
     return np.fft.rfft2(f) / (grid.nx * grid.ny) * grid.nyquist_mask
+
+
+def jax_carry_tree(c):
+    """A JAX CoupledCarry as the plain dict of numpy arrays that
+    swraytracing_torch.convert.carry_from_numpy takes."""
+    fs = c.flow_state
+    return {
+        "flow_state": {"qk": np.asarray(fs.qk), "rhs_m1": np.asarray(fs.rhs_m1),
+                       "rhs_m2": np.asarray(fs.rhs_m2), "t": np.asarray(fs.t),
+                       "step": np.asarray(fs.step)},
+        "packet_x": np.asarray(c.packet_x),
+        "packet_k": np.asarray(c.packet_k),
+        "prev_fields": np.asarray(c.prev_fields),
+        "prev_win": None if c.prev_win is None else np.asarray(c.prev_win),
+        "overflow": None if c.overflow is None else np.asarray(c.overflow),
+    }
