@@ -4,14 +4,17 @@
 
 builds the four CUDA kernels of swraytracing_torch from the sources in this
 checkout (march, transpose, build_windows, march_rays), holds each against
-its plain PyTorch version on the card, runs every path once on the card and
+its plain PyTorch version on the card (the march through both of its
+entries: rows read by cell from the window arrays, and pre-gathered rows),
+runs every path once on the card and
 once on the CPU at a small size and compares them, then drives the three
 main paths at full width, each with the launch counts set to 0 just before
 it and read just after:
 
   main_path      the two-layer coupled model at 512^2 with 2^20 wave
-                 packets, rk23 with 2 substeps, uv windows, combined gather,
-                 transposed tiles, float32 (march + transpose);
+                 packets, rk23 with 2 substeps, uv windows, (ncells, K)
+                 window rows read by cell inside the march kernel, float32
+                 (march + transpose);
   main_path_qg1  the one-layer coupled model at the same size with the
                  one-kernel window build (march + build_windows);
   frozen_path    2^20 packets marched 50 symplectic steps through a frozen
@@ -25,8 +28,10 @@ Last lines of the output: a {"kernels": [...]} line (per kernel: its time
 at the main path's shapes, the least time the card could take for the same
 bytes and operations, the plain version's time, a library call's time
 where there is one, its launches on the main paths, its error against the
-plain version), the card's name and power limit as nvidia-smi gives them,
-and {"ok": true, "device": {...}}. The `kernel_bounds` line before them
+plain version; the march row also holds `replaced_ms`, the time of the
+stacked copy, the row gather and the pre-gathered march that the gathered
+march took the place of, measured in the same run), the card's name and
+power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}. The `kernel_bounds` line before them
 holds what each bound was computed from (bytes, operations, shapes) and
 the tolerances the errors were held to. The script takes no arguments.
 """
@@ -76,8 +81,12 @@ SOURCES = {
     "build_windows": "swraytracing_torch/kernels/csrc/build_windows.cu",
     "march_rays": "swraytracing_torch/kernels/csrc/march_rays.cu",
 }
+# "march" is the entry the coupled paths launch (rows read by cell);
+# "march_pregathered" is the same kernel behind march_cuda, which no main
+# path launches (it has no row of its own in the `kernels` line).
 WRAPPERS = {
-    "march": mw.march_cuda,
+    "march": mw.march_gathered_cuda,
+    "march_pregathered": mw.march_cuda,
     "transpose": mw.transpose_cuda,
     "build_windows": mw.build_windows_cuda,
     "march_rays": mr.march_rays_cuda,
@@ -137,9 +146,16 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+MARCH_WRAPPERS = (mw.march_gathered_cuda, mw.march_cuda)
+
+
 def reset_launches():
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    for wrapper in MARCH_WRAPPERS:
+        wrapper.launches_by_route = dict.fromkeys(
+            wrapper.launches_by_route, 0)
+    mw.gather_packet_windows.calls = 0
 
 
 def read_launches():
@@ -209,11 +225,35 @@ def march_inputs(spec, F1, F2, x, k):
             mw.gather_packet_windows(W2, oi, oj, spec), xk, oi, oj)
 
 
-def compare_march(inputs, sub_dt, spec, rtol, atol, label):
-    """Kernel against march_reference on the same CUDA tensors. Returns
-    (max abs error, largest error as a share of the tolerance)."""
-    got, ov = mw.march_cuda(*inputs, sub_dt, spec)
-    want, ov_want = mw.march_reference(*inputs, sub_dt, spec)
+def gathered_inputs(spec, F1, F2, x, k):
+    """(win1, win2, xk, oi, oj): the two cell-window arrays themselves."""
+    oi, oj = mw.packet_cells(x[0], x[1], spec)
+    return (mw.build_gather_windows(F1, spec),
+            mw.build_gather_windows(F2, spec), torch.cat([x, k], dim=0),
+            oi, oj)
+
+
+def route_taken(fn, wrapper=mw.march_gathered_cuda):
+    """Run fn() and read, from the march wrapper's own counts, the one
+    route its launches took. Returns (fn's result, route)."""
+    counts = wrapper.launches_by_route
+    before = dict(counts)
+    result = fn()
+    took = [route for route in counts if counts[route] > before[route]]
+    if len(took) != 1:
+        raise AssertionError(f"the march launches took the routes {took}")
+    return result, took[0]
+
+
+def compare_march(inputs, sub_dt, spec, rtol, atol, label,
+                  kernel=mw.march_cuda, plain=mw.march_reference):
+    """A march entry's kernel against its plain version on the same CUDA
+    tensors. Returns (max abs error, largest error as a share of the
+    tolerance, largest overflow, the kernel's output, the route its launch
+    took)."""
+    (got, ov), route = route_taken(lambda: kernel(*inputs, sub_dt, spec),
+                                   kernel)
+    want, ov_want = plain(*inputs, sub_dt, spec)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: kernel output is not finite")
@@ -227,8 +267,84 @@ def compare_march(inputs, sub_dt, spec, rtol, atol, label):
         raise AssertionError(
             f"{label}: max abs err {float(err.max()):.3e} exceeds "
             f"atol={atol} rtol={rtol} ({share:.2f}x)")
-    return float(err.max()), share, int(ov.max())
+    return float(err.max()), share, int(ov.max()), got, route
 
+
+def fits_staged(spec, dtype):
+    """Whether a block of spec.block threads can stage its rows."""
+    return spec.block <= mw.staged_block_limit(spec, dtype)
+
+
+def march_by_route(win1, win2, xk, oi, oj, sub_dt, spec, route):
+    """The gathered march by a named route, whatever march_route would
+    pick: to hold one route against the other and to time both."""
+    return mw.march_gathered_cuda(win1, win2, xk, oi, oj, sub_dt, spec,
+                                  route=route)
+
+
+def check_gathered_march(dtype, rtol, atol, F1, F2, x, k, xr, kr, spec_for,
+                         dx):
+    """The march with the gather inside the kernel, against its plain
+    version, against the pre-gathered entry on index_select-ed rows (bit
+    for bit), and one route against the other (bit for bit)."""
+    worst_err, worst_share, cases, routes = 0.0, 0.0, 0, {}
+
+    def one(spec, xx, kk, sub_dt, label, overflow_wanted=False, rtol=rtol):
+        nonlocal worst_err, worst_share, cases
+        inputs = gathered_inputs(spec, F1, F2, xx, kk)
+        err, share, ovmax, got, route = compare_march(
+            inputs, sub_dt, spec, rtol, atol, label,
+            kernel=mw.march_gathered_cuda,
+            plain=mw.march_gathered_reference)
+        if (ovmax > 0) != overflow_wanted:
+            raise AssertionError(f"{label}: overflow {ovmax}")
+        win1, win2, xk, oi, oj = inputs
+        split = spec._replace(combined_gather=False)
+        pre, ov_pre = mw.march_cuda(
+            mw.gather_packet_windows(win1, oi, oj, split),
+            mw.gather_packet_windows(win2, oi, oj, split), xk, oi, oj,
+            sub_dt, split)
+        if not torch.equal(pre, got):
+            raise AssertionError(f"{label}: the gathered kernel differs from "
+                                 "the pre-gathered kernel on gathered rows")
+        other = "direct" if route == "staged" else "staged"
+        if other == "direct" or fits_staged(spec, dtype):
+            alt, ov_alt = march_by_route(*inputs, sub_dt, spec, other)
+            if not (torch.equal(alt, got) and int(ov_alt.max()) == ovmax):
+                raise AssertionError(f"{label}: the {other} route differs "
+                                     f"from the {route} route")
+        routes[label] = route
+        worst_err, worst_share = max(worst_err, err), max(worst_share, share)
+        cases += 1
+        return inputs, got
+
+    for stepper in ("rk23", "rk4", "symplectic"):
+        for nf in (2, 6):
+            for margin in (1, 2):
+                spec = spec_for(stepper=stepper, nf=nf, margin=margin,
+                                tiles_transposed=True, combined_gather=True)
+                one(spec, x, k, 0.1 * margin * dx,
+                    f"gathered {stepper} nf={nf} m={margin}")
+    # a packet count that no warp or block divides
+    for nf, margin in ((2, 1), (6, 2)):
+        spec = spec_for(stepper="rk23", nf=nf, margin=margin,
+                        tiles_transposed=True)
+        one(spec, xr, kr, 0.1 * margin * dx,
+            f"gathered ragged Np={xr.shape[1]} nf={nf} m={margin}")
+    spec = spec_for(stepper="rk23", nf=2, margin=1, tiles_transposed=True)
+    # frozen packets: xk comes back bit for bit
+    inputs, got = one(spec, xr, kr, 0.0, "gathered sub_dt=0")
+    if not torch.equal(got, inputs[2]):
+        raise AssertionError(f"{dtype}: gathered sub_dt=0 is not the identity")
+    if dtype == torch.float64:
+        # a substep long enough to leave the margin: overflow > 0, equal
+        # on both sides (|x| grows to O(100): relative tolerance)
+        one(spec, x, k, 5.0 * dx, "gathered forced overflow",
+            overflow_wanted=True, rtol=1e-12)
+    return {"cases": cases, "max_abs_err": worst_err, "rtol": rtol,
+            "atol": atol, "worst_share_of_tolerance": worst_share,
+            "equals_pregathered_kernel_bit_for_bit": True,
+            "routes_equal_bit_for_bit": True, "routes": routes}
 
 
 def check_build_windows(dev):
@@ -373,13 +489,17 @@ def phase_kernels_vs_plain(dev):
     xh[:, 0] = [-1e-18, L]
     xh[:, 1] = [L, -1e-18]
     xh[:, 2] = [np.nextafter(dx, 0), np.nextafter(dx, 1)]
+    # the same with a count that no warp or block divides, as K4's cases
+    n_r = n_p + 37
+    xrh = np.concatenate([xh, rng.uniform(0.0, L, (2, 37))], axis=1)
+    krh = np.concatenate([kh, rng.normal(0.0, 3.0, (2, 37))], axis=1)
 
     report = {}
     for dtype, rtol, atol in ((torch.float64, 0.0, F64_ATOL),
                               (torch.float32, F32_RTOL, F32_ATOL)):
-        F1, F2, x, k = (torch.as_tensor(a, dtype=dtype, device=dev)
-                        for a in (F1h, F2h, xh, kh))
-        worst_err, worst_share, cases = 0.0, 0.0, 0
+        F1, F2, x, k, xr, kr = (torch.as_tensor(a, dtype=dtype, device=dev)
+                                for a in (F1h, F2h, xh, kh, xrh, krh))
+        worst_err, worst_share, cases, routes = 0.0, 0.0, 0, {}
 
         def spec_for(**kw):
             nf = kw.pop("nf", 6)
@@ -399,15 +519,31 @@ def phase_kernels_vs_plain(dev):
                             label = (f"{dtype} {stepper} nf={nf} "
                                      f"combined={combined} "
                                      f"transposed={transposed} m={margin}")
-                            err, share, ovmax = compare_march(
+                            err, share, ovmax, _, route = compare_march(
                                 march_inputs(spec, F1, F2, x, k),
                                 0.1 * margin * dx, spec, rtol, atol, label)
                             if ovmax != 0:
                                 raise AssertionError(
                                     f"{label}: unexpected overflow {ovmax}")
+                            routes[label] = route
                             worst_err = max(worst_err, err)
                             worst_share = max(worst_share, share)
                             cases += 1
+        # ragged packet count, row layout (combined) and (K, Np) layout
+        for transposed in (True, False):
+            spec = spec_for(stepper="rk23", nf=2, margin=1,
+                            combined_gather=transposed,
+                            tiles_transposed=transposed)
+            label = f"{dtype} ragged Np={n_r} transposed={transposed}"
+            err, share, ovmax, _, route = compare_march(
+                march_inputs(spec, F1, F2, xr, kr), 0.1 * dx, spec, rtol,
+                atol, label)
+            if ovmax != 0:
+                raise AssertionError(f"{label}: unexpected overflow {ovmax}")
+            routes[label] = route
+            worst_err, worst_share = max(worst_err, err), max(worst_share,
+                                                              share)
+            cases += 1
         spec = spec_for(stepper="rk23", nf=2, margin=1, combined_gather=True,
                         tiles_transposed=True)
         inputs = march_inputs(spec, F1, F2, x, k)
@@ -420,7 +556,7 @@ def phase_kernels_vs_plain(dev):
         if dtype == torch.float64:
             # a substep long enough to leave the margin: overflow > 0,
             # equal on both sides (the MAX over stages and substeps)
-            err, share, ovmax = compare_march(
+            err, share, ovmax, _, _ = compare_march(
                 inputs, 5.0 * dx, spec, 1e-12, F64_ATOL,
                 "float64 forced overflow")
             if ovmax <= 0:
@@ -428,10 +564,12 @@ def phase_kernels_vs_plain(dev):
             extra = {"forced_overflow_max": ovmax,
                      "forced_overflow_max_abs_err": err}
             cases += 1
-        report[str(dtype)] = {"cases": cases, "max_abs_err": worst_err,
-                              "rtol": rtol, "atol": atol,
-                              "worst_share_of_tolerance": worst_share,
-                              **extra}
+        report[str(dtype)] = {
+            "cases": cases, "max_abs_err": worst_err, "rtol": rtol,
+            "atol": atol, "worst_share_of_tolerance": worst_share, **extra,
+            "routes": routes,
+            "gathered": check_gathered_march(dtype, rtol, atol, F1, F2, x, k,
+                                             xr, kr, spec_for, dx)}
 
     # transpose: exact equality
     shapes = [(128, 262144), (262144, 128), (130, 1000)]
@@ -577,6 +715,18 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
     if launches != expected:
         raise AssertionError(f"{phase}: launch counts {launches}, expected "
                              f"{expected}")
+    # the march reads its rows by cell: nothing gathers them beforehand
+    gathers = mw.gather_packet_windows.calls
+    if gathers != 0:
+        raise AssertionError(f"{phase}: gather_packet_windows was called "
+                             f"{gathers} times")
+    # by the counts the launches themselves left: every one staged
+    routes = dict(WRAPPERS[march].launches_by_route)
+    if routes != {"staged": all_steps, "direct": 0}:
+        raise AssertionError(f"{phase}: the march launches took the routes "
+                             f"{routes}")
+    if any(mw.march_cuda.launches_by_route.values()):
+        raise AssertionError(f"{phase}: the pre-gathered march was launched")
     for name, t in (("packet_x", carry.packet_x), ("packet_k", carry.packet_k),
                     ("prev_fields", carry.prev_fields),
                     ("qk", torch.view_as_real(carry.flow_state.qk))):
@@ -607,12 +757,14 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
          host_seconds=wall, flow_steps_per_s=steps / seconds,
          packet_steps_per_s=steps * cfg.n_packets / seconds,
          ms_per_flow_step=1e3 * seconds / steps, launches=launches,
-         overflow=overflow, max_packet_displacement=moved,
+         march_launches_by_route=routes, march_block=s.march.block,
+         gather_packet_windows_calls=gathers, overflow=overflow,
+         max_packet_displacement=moved,
          omega_over_f_start=[om0_mean, om0_std],
          omega_over_f_end=[float(om1.mean()), float(om1.std())],
          max_speed=speed, t_end=carry.flow_state.t,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
-    return (cfg, s, carry), launches, all_steps
+    return (cfg, s, carry), launches, routes, all_steps
 
 
 def phase_main_path(n_chunks):
@@ -674,6 +826,115 @@ def time_parts(parts, reps=15):
     return {name: cuda_ms(fn, reps) for name, fn in parts.items()}
 
 
+def march_at_main_shapes(spec, win1, win2, x, k, sub_dt):
+    """K1 as the coupled paths launch it (rows read by cell from the two
+    window arrays) on a main path's tensors: held against its plain
+    version, timed, and beside it what it took the place of in a flow
+    step: the stacked copy of the two window arrays, the row gather, and
+    the pre-gathered march on the gathered rows (same bits). Returns
+    (args, ms, max abs err, replaced, the route the timed launches took)."""
+    n_p = x.shape[1]
+    oi, oj = mw.packet_cells(x[0], x[1], spec)
+    args = (win1, win2, torch.cat([x, k], dim=0), oi, oj, sub_dt, spec)
+    if (tuple(win1.shape) != (spec.nx * spec.ny, spec.K)
+            or win2.shape != win1.shape):
+        raise AssertionError(f"unexpected window arrays {tuple(win1.shape)} "
+                             f"{tuple(win2.shape)}")
+    err, _, ovmax, got, _ = compare_march(
+        args[:5], sub_dt, spec, F32_RTOL, F32_ATOL,
+        "march at the main shapes", kernel=mw.march_gathered_cuda,
+        plain=mw.march_gathered_reference)
+    if ovmax != 0:
+        raise AssertionError(f"march overflow {ovmax} at the main shapes")
+
+    combined = spec._replace(combined_gather=True)
+    winc = torch.cat([win1, win2], dim=-1)
+    pwc = mw.gather_packet_windows(winc, oi, oj, combined)
+    if tuple(pwc.shape) != (n_p, 2 * spec.K):
+        raise AssertionError(f"unexpected window rows {tuple(pwc.shape)}")
+    dummy = pwc.new_zeros((1, 1))
+    old, _ = mw.march_cuda(pwc, dummy, *args[2:5], sub_dt, combined)
+    if not torch.equal(old, got):
+        raise AssertionError("the gathered march differs from the "
+                             "pre-gathered march at the main shapes")
+    del old, got
+    replaced = time_parts({
+        "cat_windows": lambda: torch.cat([win1, win2], dim=-1),
+        "gather_packet_windows": lambda: mw.gather_packet_windows(
+            winc, oi, oj, combined),
+        "march_cuda": lambda: mw.march_cuda(pwc, dummy, *args[2:5], sub_dt,
+                                            combined),
+    })
+    replaced["replaced_ms"] = sum(replaced.values())
+    del winc, pwc
+    ms, route = route_taken(
+        lambda: cuda_ms(lambda: mw.march_gathered_cuda(*args), 25))
+    return args, ms, err, replaced, route
+
+
+def phase_march_routes(args):
+    """The two routes of the march kernel at the main shape over block
+    sizes (and the three steppers by the route the rule gives), and at the
+    other window sizes and types on random fields of the main grid: what
+    march_route's rule and MarchSpec.block's default rest on. Same bits by
+    either route."""
+    win1, win2, xk, oi, oj, sub_dt, spec = args
+    dev, n_p = xk.device, xk.shape[1]
+    main = {}
+    for route in ("staged", "direct"):
+        for block in (32, 64, 96, 128, 192):
+            sp = spec._replace(block=block)
+            if route == "staged" and not fits_staged(sp, xk.dtype):
+                continue
+            main[f"{route} block={block}"] = cuda_ms(
+                lambda: march_by_route(win1, win2, xk, oi, oj, sub_dt, sp,
+                                       route), 15)
+    # 2, 6 and 8 stage evaluations a flow step on the same rows: what the
+    # copy of the rows costs and what an evaluation costs
+    steppers = {
+        f"{stepper} x{spec.n_substeps}": cuda_ms(
+            lambda: mw.march_gathered_cuda(
+                win1, win2, xk, oi, oj, sub_dt,
+                spec._replace(stepper=stepper)), 15)
+        for stepper in ("symplectic", "rk23", "rk4")}
+    emit("march_routes_main_shape", unit="ms, median of 15", K=spec.K,
+         dtype=str(xk.dtype), rule=mw.march_route(spec, xk.dtype),
+         default_block=mw.MarchSpec._field_defaults["block"], **main,
+         steppers_by_the_rule=steppers)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    other = {}
+    for dtype, nf, margin in ((torch.float32, 2, 2), (torch.float32, 6, 1),
+                              (torch.float32, 6, 2), (torch.float64, 2, 1),
+                              (torch.float64, 2, 2), (torch.float64, 6, 1)):
+        sp = spec._replace(nf=nf, grad_from_interp=nf == 2, margin=margin)
+        F = 0.1 * torch.randn((2, nf, spec.nx, spec.ny), dtype=dtype,
+                              device=dev, generator=g)
+        w1 = mw.build_gather_windows(F[0], sp)
+        w2 = mw.build_gather_windows(F[1], sp)
+        xk_ = xk.to(dtype)
+        coi, coj = mw.packet_cells(xk_[0], xk_[1], sp)
+        case, outs = {}, []
+        for route in ("staged", "direct"):
+            for block in (32, 64, 128):
+                spb = sp._replace(block=block)
+                if route == "staged" and not fits_staged(spb, dtype):
+                    continue
+                run = lambda: march_by_route(w1, w2, xk_, coi, coj, sub_dt,
+                                             spb, route)
+                outs.append(run()[0])
+                case[f"{route} block={block}"] = cuda_ms(run, 7)
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"routes differ at nf={nf} m={margin} "
+                                 f"{dtype}")
+        other[f"{dtype} nf={nf} m={margin} K={sp.K}"] = {
+            "rule": mw.march_route(sp, dtype),
+            "staged_warp_bytes": mw.staged_warp_bytes(sp, dtype), **case}
+        del F, w1, w2, outs
+    emit("march_routes_other_shapes", unit="ms, median of 7",
+         n_packets=n_p, nx=spec.nx, **other)
+
+
 def phase_kernels(cfg, s, carry, steps):
     """K1 march and K2 transpose at the two-layer main path's shapes, and
     the parts of one two-layer flow step."""
@@ -682,16 +943,17 @@ def phase_kernels(cfg, s, carry, steps):
     item = carry.packet_x.element_size()
     n_p = cfg.n_packets
 
-    # K1 inputs exactly as lockstep_step forms them, from the final carry
+    # K1 inputs exactly as lockstep_step forms them, from the final carry:
+    # the previous snapshot's window array and the new one's
     state2 = qg2.qg2_step(carry.flow_state, s.grid, s.ops, s.params)
     fields2 = qg2.top_layer_flow(state2.qk, s.grid, s.ops, s.params,
                                  cfg.one_layer_quirk, n_fields=spec.nf).fields
     W = mw.build_margin_windows(fields2, spec)           # (K, ncells)
     win2 = mw.transpose_cuda(W)
-    winc = torch.cat([carry.prev_win, win2], dim=-1)
     x, k = carry.packet_x, carry.packet_k
-    oi, oj = mw.packet_cells(x[0], x[1], spec)
-    pwc = mw.gather_packet_windows(winc, oi, oj, spec)
+    sub_dt = s.dt / cfg.n_substeps
+    args, march_ms, march_err, replaced, march_route = march_at_main_shapes(
+        spec, carry.prev_win, win2, x, k, sub_dt)
 
     # the parts of one flow step, each timed alone on these inputs
     breakdown = time_parts({
@@ -703,39 +965,22 @@ def phase_kernels(cfg, s, carry, steps):
         "build_margin_windows": lambda: mw.build_margin_windows(fields2,
                                                                 spec),
         "transpose_cuda": lambda: mw.transpose_cuda(W),
-        "cat_windows": lambda: torch.cat([carry.prev_win, win2], dim=-1),
         "packet_cells": lambda: mw.packet_cells(x[0], x[1], spec),
-        "gather_packet_windows": lambda: mw.gather_packet_windows(
-            winc, oi, oj, spec),
     })
-    del winc
-    dummy = pwc.new_zeros((1, 1))
-    xk = torch.cat([x, k], dim=0)
-    sub_dt = s.dt / cfg.n_substeps
-    args = (pwc, dummy, xk, oi, oj, sub_dt, spec)
-    if tuple(pwc.shape) != (n_p, 2 * spec.K):
-        raise AssertionError(f"unexpected window rows {tuple(pwc.shape)}")
-
-    got, ov = mw.march_cuda(*args)
-    want, ov_want = mw.march_reference(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(ov, ov_want):
-        raise AssertionError("march overflow differs at the main shapes")
-    err = (got - want).abs()
-    share = float((err / (F32_ATOL + F32_RTOL * want.abs())).max())
-    if share > 1.0:
-        raise AssertionError(
-            f"march at the main shapes: max abs err {float(err.max()):.3e} "
-            f"exceeds atol={F32_ATOL} rtol={F32_RTOL}")
-    march_err = float(err.max())
-    del got, want, err
-
-    march_ms = cuda_ms(lambda: mw.march_cuda(*args), 25)
-    breakdown["march_cuda"] = march_ms
+    breakdown["march_gathered_cuda"] = march_ms
     emit("step_breakdown", unit="ms, median, each part alone",
-         sum_of_parts=sum(breakdown.values()), **breakdown)
-    march_plain_ms = cuda_ms(lambda: mw.march_reference(*args), 3)
-    march_bytes = n_p * (2 * spec.K * item + 4 * item + 8 + 4 * item + 4)
+         sum_of_parts=sum(breakdown.values()), **breakdown,
+         march_route=march_route, replaced_by_march_gathered_cuda=replaced)
+    phase_march_routes(args)
+    march_plain_ms = cuda_ms(lambda: mw.march_gathered_reference(*args), 3)
+    # Bytes the function must move: every window row that some packet
+    # reads, once (packets of one cell share their row: this run's count of
+    # occupied cells, not the packet count), and per packet xk, oi, oj in
+    # and xk, overflow out.
+    oi, oj = args[3], args[4]
+    occupied = int(torch.unique(oi.long() * spec.ny + oj).numel())
+    march_bytes = (occupied * 2 * spec.K * item
+                   + n_p * (4 * item + 8 + 4 * item + 4))
     march_flops = n_p * march_flops_per_packet(spec)
     by_bytes = march_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = march_flops / FLOPS_PER_S[dtype] * 1e3
@@ -757,7 +1002,11 @@ def phase_kernels(cfg, s, carry, steps):
     # What the bounds were computed from, and what the errors were held to.
     bounds = {
         "flow_steps": steps,
-        "march": {"shape": f"pwc {tuple(pwc.shape)} {dtype}, xk (4, {n_p})",
+        "march": {"shape": f"win1, win2 {tuple(win2.shape)} {dtype} read by "
+                           f"cell, one row of 2K = {2 * spec.K} values an "
+                           f"occupied cell, xk (4, {n_p})",
+                  "occupied_cells": occupied,
+                  "cells": spec.nx * spec.ny,
                   "bytes": march_bytes, "flops": march_flops,
                   "ms_by_bytes": by_bytes, "ms_by_operations": by_ops,
                   "tolerance": {"rtol": F32_RTOL, "atol": F32_ATOL}},
@@ -771,7 +1020,8 @@ def phase_kernels(cfg, s, carry, steps):
          "replaces": REPLACES["march"], "max_abs_err": march_err, "ms": march_ms,
          "plain_ms": march_plain_ms, "bound_ms": max(by_bytes, by_ops),
          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-         "library_ms": None},
+         "library_ms": None, "march_route": march_route,
+         "replaced_ms": replaced["replaced_ms"], "replaced": replaced},
         {"name": "transpose", "route": "cuda", "source": SOURCES["transpose"],
          "replaces": REPLACES["transpose"], "max_abs_err": tr_err,
          "ms": tr_ms, "plain_ms": tr_plain_ms, "bound_ms": tr_by_bytes,
@@ -805,25 +1055,17 @@ def phase_kernels_qg1(cfg, s, carry):
     if not torch.equal(got, mw.transpose_cuda(W)):
         raise AssertionError("build_windows differs from the two-pass route "
                              "at the main shape")
-    winc = torch.cat([carry.prev_win, got], dim=-1)
     x, k = carry.packet_x, carry.packet_k
-    oi, oj = mw.packet_cells(x[0], x[1], spec)
-    pwc = mw.gather_packet_windows(winc, oi, oj, spec)
-    xk = torch.cat([x, k], dim=0)
-    dummy = pwc.new_zeros((1, 1))
-    sub_dt = s.dt / cfg.n_substeps
+    _, march_ms, _, replaced, march_route = march_at_main_shapes(
+        spec, carry.prev_win, got, x, k, s.dt / cfg.n_substeps)
     breakdown = time_parts({
         "qg_step": lambda: qg.qg_step(carry.flow_state, s.grid, qp),
         "flow_from_qk": lambda: flow_from_qk(state2.qk, s.grid, qp.Kd2,
                                              n_fields=spec.nf),
         "build_windows_fused": lambda: mw.build_windows_fused(fields2, spec),
-        "cat_windows": lambda: torch.cat([carry.prev_win, got], dim=-1),
         "packet_cells": lambda: mw.packet_cells(x[0], x[1], spec),
-        "gather_packet_windows": lambda: mw.gather_packet_windows(
-            winc, oi, oj, spec),
-        "march_cuda": lambda: mw.march_cuda(pwc, dummy, xk, oi, oj, sub_dt,
-                                            spec),
     })
+    breakdown["march_gathered_cuda"] = march_ms
     two_pass = time_parts({
         "build_margin_windows": lambda: mw.build_margin_windows(fields2,
                                                                 spec),
@@ -831,8 +1073,9 @@ def phase_kernels_qg1(cfg, s, carry):
     })
     emit("step_breakdown_qg1", unit="ms, median, each part alone",
          sum_of_parts=sum(breakdown.values()), **breakdown,
+         march_route=march_route, replaced_by_march_gathered_cuda=replaced,
          two_pass_route_on_the_same_fields=two_pass)
-    del winc, pwc, W
+    del W
 
     bw_ms = cuda_ms(lambda: mw.build_windows_cuda(fields2, spec), 25)
     bw_plain_ms = cuda_ms(lambda: mw.build_windows_reference(fields2, spec),
@@ -974,10 +1217,10 @@ def main():
     phase_build()
     phase_kernels_vs_plain(dev)
     phase_path_vs_cpu(dev)
-    two, launches_two, steps = phase_main_path(N_CHUNKS)
+    two, launches_two, routes_two, steps = phase_main_path(N_CHUNKS)
     rows, bounds = phase_kernels(*two, steps)
     del two
-    one, launches_one, _ = phase_main_path_qg1(N_CHUNKS)
+    one, launches_one, routes_one, _ = phase_main_path_qg1(N_CHUNKS)
     rows_one, bounds_one = phase_kernels_qg1(*one)
     del one
     rows_rays, bounds_rays, launches_rays = phase_frozen_path(dev)
@@ -991,6 +1234,9 @@ def main():
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        if row["name"] == "march":
+            row["launches_by_route_by_path"] = {"main_path": routes_two,
+                                                "main_path_qg1": routes_one}
         if row["launches"] < 1:
             raise AssertionError(f"no main path launched {row['name']}")
     emit("kernel_bounds", hbm_bytes_per_s=HBM_BYTES_PER_S,

@@ -2,7 +2,8 @@
 
 ``load()`` compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one
 compiler process per source, started together; the march kernel is one
-header instantiated by one source per scalar type for that reason), links
+header instantiated by one source per scalar type and route for that
+reason), links
 the objects into one shared library with a plain C interface, and opens
 it with ``ctypes``. The library goes into ``build/`` beside this file,
 named by a hash of the sources, headers and flags, so an unchanged tree
@@ -14,8 +15,15 @@ ops/march_rays.py call at their first launch. A failed build or launch
 raises; there is no fallback.
 
 Kernels (C entry -> wrapper):
-  swr_march_f32, swr_march_f64  csrc/march.cuh (march_f32.cu, march_f64.cu)
-                                ops.march_window.march_cuda
+  swr_march_f32, swr_march_f64  csrc/march.cuh (march_f32.cu, march_f64.cu):
+                                every thread reads its own window row
+  swr_march_staged_f32, _f64    csrc/march.cuh (march_staged_f32.cu,
+                                march_staged_f64.cu): each warp's rows
+                                copied into shared memory first
+                                ops.march_window.march_gathered_cuda (rows
+                                read by cell from the window arrays) and
+                                march_cuda (pre-gathered rows), by the
+                                route ops.march_window.march_route gives
   swr_transpose                 csrc/transpose.cu
                                 ops.march_window.transpose_cuda
   swr_build_windows             csrc/build_windows.cu
@@ -104,10 +112,12 @@ def _build(srcs, lib_path: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-    for march in (lib.swr_march_f32, lib.swr_march_f64):
+    for march in (lib.swr_march_f32, lib.swr_march_f64,
+                  lib.swr_march_staged_f32, lib.swr_march_staged_f64):
         march.restype = i32
         march.argtypes = [
             vp, vp, i64, i64,    # snapshot-1 / snapshot-2 windows, strides
+            i32,                 # rows by cell (1) or by packet (0)
             vp, vp, vp,          # xk, oi, oj
             vp, vp,              # out, overflow
             i64, f64,            # Np, sub_dt
@@ -159,9 +169,13 @@ def load() -> ctypes.CDLL:
 
 def check(err: int, entry: str) -> None:
     """Raise if a C entry returned a CUDA error (or -1: a configuration
-    the library has no kernel for)."""
+    the library has no kernel for; -2: a block whose rows do not fit in
+    an SM's shared memory)."""
     if err == 0:
         return
+    if err == -2:
+        raise RuntimeError(f"{entry}: the block's rows do not fit in one "
+                           "SM's shared memory")
     if err < 0:
         raise RuntimeError(f"{entry}: no kernel for this configuration")
     msg = load().swr_error_string(err).decode()

@@ -10,31 +10,63 @@
 // only by fused multiply-adds and by skipping the window entries whose
 // weight is exactly zero.
 //
+// Bound on this card: bytes. A packet needs its window row of both
+// snapshots once (2K values, about 1 KB at nf=2, margin 1, float32)
+// against a few thousand floating-point operations.
+//
 // Design. The TPU kernel keeps packets on vector lanes and shifts the six
 // stencil weights into the SW-wide window with select-sums, because a
-// lane cannot index on its own. A GPU thread can: here one thread owns one
-// packet, computes its 6 (+6 derivative) weights per axis in registers,
-// and contracts only the live 6x6 sub-window at offset (di+m, dj+m) of
-// its gathered row, blending the two snapshots as it reads. The window
-// arrays come in through two strides (packet to packet, component to
-// component), so the (Np, K) gather-row layout, the (K, Np) layout and the
-// combined two-snapshot layouts are all this one kernel.
+// lane cannot index on its own; for the same reason the JAX package
+// gathers every packet's row into a second array before its kernel runs.
+// A GPU thread can index: one thread owns one packet, computes its 6
+// (+6 derivative) weights per axis in registers and contracts only the
+// live 6x6 sub-window at offset (di+m, dj+m) of its row, blending the two
+// snapshots as it reads. Two things keep the bytes near what must move:
 //
-// Bound on this card: bytes. Each packet's 2K window values are read once
-// (about 1 KB at nf=2, margin 1, float32) against a few thousand
-// floating-point operations. This first version re-reads the live
-// sub-window from global memory at every stage (through L1/L2) and, in
-// the (Np, K) layout, reads 24-byte runs that neighbouring threads do not
-// share; staging each row once in shared memory with coalesced 16-byte
-// loads is the step that brings it towards the bound.
+//  * The gathered row base. With `gathered` set, p1 and p2 are the
+//    cell-window arrays themselves, (ncells, K) rows, and a packet's row
+//    is row oi*ny + oj of each: no gathered copy is written or read back.
+//    Without it the row is the packet's own (the pre-gathered layouts,
+//    through the two strides sp and se: (Np, K), (K, Np), and the combined
+//    two-snapshot forms of both).
 //
-// This header holds the kernel; march_f32.cu and march_f64.cu instantiate
-// it for one scalar type each, so the two compile side by side.
+//  * Staging (template parameter STAGED, row layouts only, se == 1). A
+//    thread reading its own row touches 32 different sectors per warp
+//    instruction, at every one of the 36 x nf x 2 reads of every stage.
+//    Instead each warp first copies its 32 packets' rows into shared
+//    memory, the 32 lanes together reading consecutive elements of ONE
+//    row, so device memory is read once per row and fully coalesced;
+//    every stage then contracts from shared memory. A packet's row is
+//    2K + 1 elements apart from the next: the odd stride spreads the
+//    lanes' reads of one component over all banks. It costs the 16-byte
+//    alignment of the rows, so the copies are element-sized; they are
+//    asynchronous copies (cp.async) that go from device to shared memory
+//    without passing through registers, all of a warp's rows in flight at
+//    once. (Staging through registers, 16-byte loads and scalar stores in
+//    batches of 8 rows, took twice the kernel's time: a warp waited out
+//    the memory latency four times, and then stored.) Staging is per warp
+//    (__syncwarp, no block barrier), so the only limit on a block is that
+//    its warps' rows fit in shared memory; lanes past the last packet stay
+//    for the copy and skip only their own march.
+//
+// Which of the two a launch takes is the caller's rule on (2K, element
+// size) alone (march_route in march_window.py): staged while a warp's
+// rows fit in an SM's shared memory, else direct per-thread loads;
+// the (K, Np) layout is always direct, its loads being coalesced across
+// lanes already. A staged launch that does not fit is refused, not
+// rerouted.
+//
+// This header holds the kernel; march_f32.cu, march_f64.cu (direct) and
+// march_staged_f32.cu, march_staged_f64.cu (staged) instantiate it for one
+// scalar type and route each, so the four compile side by side.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "scalar.cuh"
 
@@ -46,8 +78,9 @@ template <typename T>
 struct MarchArgs {
   const T* p1;          // snapshot-1 windows
   const T* p2;          // snapshot-2 windows
-  long long sp;         // stride between packets, in elements
+  long long sp;         // stride between rows, in elements
   long long se;         // stride between window components, in elements
+  int gathered;         // row = oi*ny + oj (cell-window arrays), else packet
   const T* xk;          // (4, Np)
   const int* oi;        // (Np,)
   const int* oj;        // (Np,)
@@ -105,8 +138,9 @@ __device__ __forceinline__ void lagrange(T fr, T* w, T* dw, bool want_dw) {
 }
 
 // Interpolate the time-blended fields at (x0, x1) from this packet's
-// windows r1, r2. F = [u, v, ux, uy, vx, vy]. Returns the margin excess.
-template <typename T, bool GRAD>
+// windows r1, r2 (in shared memory with unit stride when STAGED, else in
+// device memory). F = [u, v, ux, uy, vx, vy]. Returns the margin excess.
+template <typename T, bool GRAD, bool STAGED>
 __device__ __forceinline__ int eval_fields(const MarchArgs<T>& A,
                                            const T* __restrict__ r1,
                                            const T* __restrict__ r2,
@@ -138,6 +172,9 @@ __device__ __forceinline__ int eval_fields(const MarchArgs<T>& A,
 
   const T alpha = T(alpha_d);
   const T oma = T(1.0 - alpha_d);
+  // offsets into shared memory fit 32 bits and have unit stride
+  typedef typename std::conditional<STAGED, int, long long>::type Idx;
+  const Idx se = STAGED ? Idx(1) : Idx(A.se);
   constexpr int NF = GRAD ? 2 : 6;
   T val[NF], gx[NF], gy[NF];  // sum_x ty*wx, sum_x ty*dwx, sum_x tdy*wx
 #pragma unroll
@@ -145,13 +182,13 @@ __device__ __forceinline__ int eval_fields(const MarchArgs<T>& A,
     T acc = T(0), accx = T(0), accy = T(0);
 #pragma unroll
     for (int a = 0; a < 6; ++a) {
-      const long long base =
-          ((long long)((f * sw + di + m + a) * sw + dj + m)) * A.se;
+      const Idx base = Idx((f * sw + di + m + a) * sw + dj + m) * se;
       T ty = T(0), tdy = T(0);
 #pragma unroll
       for (int b = 0; b < 6; ++b) {  // y first
-        const long long at = base + b * A.se;
-        const T v = oma * __ldg(r1 + at) + alpha * __ldg(r2 + at);
+        const Idx at = base + b * se;
+        const T v = STAGED ? oma * r1[at] + alpha * r2[at]
+                           : oma * __ldg(r1 + at) + alpha * __ldg(r2 + at);
         ty += v * wy[b];
         if (GRAD) tdy += v * dwy[b];
       }
@@ -180,14 +217,15 @@ __device__ __forceinline__ int eval_fields(const MarchArgs<T>& A,
 }
 
 // Right-hand side of the ray ODE: d = [dx0, dx1, dk0, dk1].
-template <typename T, bool GRAD>
+template <typename T, bool GRAD, bool STAGED>
 __device__ __forceinline__ int rhs(const MarchArgs<T>& A,
                                    const T* __restrict__ r1,
                                    const T* __restrict__ r2, T x0, T x1,
                                    T k0, T k1, double alpha, int oi, int oj,
                                    T* d) {
   T F[6];
-  const int ov = eval_fields<T, GRAD>(A, r1, r2, x0, x1, alpha, oi, oj, F);
+  const int ov =
+      eval_fields<T, GRAD, STAGED>(A, r1, r2, x0, x1, alpha, oi, oj, F);
   const T f2 = T(A.f2), gH = T(A.gH);
   const T om = sqrt_(f2 + gH * (k0 * k0 + k1 * k1));
   const T inv = T(1) / om;
@@ -198,33 +236,85 @@ __device__ __forceinline__ int rhs(const MarchArgs<T>& A,
   return ov;
 }
 
-template <typename T, bool GRAD, int STEPPER>
+// Copy the rows of this warp's `nrows` packets (lane r holds `row` of
+// packet r) from p1, p2 into shared memory at `dst`, packet r at
+// dst + r*stride: K elements of snapshot 1, then K of snapshot 2. The
+// lanes copy consecutive elements of one row with asynchronous
+// element-sized copies (cp.async), so an instruction reads 32 consecutive
+// elements of device memory and writes them to 32 different banks, no
+// register holds the data, and all of the warp's rows are in flight at
+// once. Returns when this thread's copies have landed; the caller's
+// __syncwarp() makes the other lanes' visible.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const MarchArgs<T>& A, T* dst,
+                                           int stride, int K, long long row,
+                                           int nrows, int lane) {
+  for (int r = 0; r < nrows; ++r) {
+    // every lane takes part in the shuffle: nrows is the same for all
+    const long long at = __shfl_sync(0xffffffffu, row, r) * A.sp;
+    T* s = dst + r * stride;
+    for (int c = lane; c < K; c += 32) {
+      __pipeline_memcpy_async(s + c, A.p1 + at + c, sizeof(T));
+      __pipeline_memcpy_async(s + K + c, A.p2 + at + c, sizeof(T));
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+template <typename T, bool GRAD, int STEPPER, bool STAGED>
 __global__ void __launch_bounds__(256) march_kernel(MarchArgs<T> A) {
   const long long pkt = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (pkt >= A.np) return;  // ragged last block
-  const T* __restrict__ r1 = A.p1 + pkt * A.sp;
-  const T* __restrict__ r2 = A.p2 + pkt * A.sp;
+  const bool live = pkt < A.np;  // ragged last block
+  if (!STAGED && !live) return;
+  const int oi = live ? A.oi[pkt] : 0, oj = live ? A.oj[pkt] : 0;
+  // 64-bit: ncells*K passes 2^31 at 1024^2
+  const long long row = A.gathered ? (long long)oi * A.ny + oj : pkt;
+  const T* __restrict__ r1;
+  const T* __restrict__ r2;
+  if (STAGED) {
+    extern __shared__ __align__(8) unsigned char march_rows[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int sw = 6 + 2 * A.margin;
+    const int K = (GRAD ? 2 : 6) * sw * sw;
+    const int stride = 2 * K + 1;
+    const long long first = pkt - lane;  // the warp's first packet
+    if (first >= A.np) return;           // the whole warp is past the end
+    const int nrows = (int)min(32LL, A.np - first);
+    T* mine = reinterpret_cast<T*>(march_rows) + (size_t)warp * 32 * stride;
+    stage_rows<T>(A, mine, stride, K, row, nrows, lane);
+    __syncwarp();
+    if (!live) return;
+    r1 = mine + lane * stride;
+    r2 = r1 + K;
+  } else {
+    r1 = A.p1 + row * A.sp;
+    r2 = A.p2 + row * A.sp;
+  }
   T x0 = A.xk[pkt], x1 = A.xk[A.np + pkt];
   T k0 = A.xk[2 * A.np + pkt], k1 = A.xk[3 * A.np + pkt];
-  const int oi = A.oi[pkt], oj = A.oj[pkt];
   const T h = T(A.sub_dt);
   const int n = A.nsub;
   const double da = 1.0 / n;
   int ovt = 0;  // the MAX over stages and substeps, not a sum
 
+  // the right-hand side on this packet's windows
+  const auto f = [&](T xa, T xb, T ka, T kb, double alpha, T* out) {
+    return rhs<T, GRAD, STAGED>(A, r1, r2, xa, xb, ka, kb, alpha, oi, oj,
+                                out);
+  };
+
   for (int i = 0; i < n; ++i) {
     const double a0 = double(i) / n;
     if (STEPPER == RK23) {
       T d[4], e[4], g[4];
-      int o = rhs<T, GRAD>(A, r1, r2, x0, x1, k0, k1, a0, oi, oj, d);
+      int o = f(x0, x1, k0, k1, a0, d);
       const T hh = T(0.5) * h;
-      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + hh * d[0], x1 + hh * d[1],
-                              k0 + hh * d[2], k1 + hh * d[3],
-                              a0 + 0.5 * da, oi, oj, e));
+      o = max(o, f(x0 + hh * d[0], x1 + hh * d[1], k0 + hh * d[2],
+                   k1 + hh * d[3], a0 + 0.5 * da, e));
       const T hq = T(0.75) * h;
-      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + hq * e[0], x1 + hq * e[1],
-                              k0 + hq * e[2], k1 + hq * e[3],
-                              a0 + 0.75 * da, oi, oj, g));
+      o = max(o, f(x0 + hq * e[0], x1 + hq * e[1], k0 + hq * e[2],
+                   k1 + hq * e[3], a0 + 0.75 * da, g));
       const T c = h / T(9);
       x0 = x0 + c * (T(2) * d[0] + T(3) * e[0] + T(4) * g[0]);
       x1 = x1 + c * (T(2) * d[1] + T(3) * e[1] + T(4) * g[1]);
@@ -233,17 +323,14 @@ __global__ void __launch_bounds__(256) march_kernel(MarchArgs<T> A) {
       ovt = max(ovt, o);
     } else if (STEPPER == RK4) {
       T d[4], e[4], g[4], q[4];
-      int o = rhs<T, GRAD>(A, r1, r2, x0, x1, k0, k1, a0, oi, oj, d);
+      int o = f(x0, x1, k0, k1, a0, d);
       const T hh = T(0.5) * h;
-      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + hh * d[0], x1 + hh * d[1],
-                              k0 + hh * d[2], k1 + hh * d[3],
-                              a0 + 0.5 * da, oi, oj, e));
-      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + hh * e[0], x1 + hh * e[1],
-                              k0 + hh * e[2], k1 + hh * e[3],
-                              a0 + 0.5 * da, oi, oj, g));
-      o = max(o, rhs<T, GRAD>(A, r1, r2, x0 + h * g[0], x1 + h * g[1],
-                              k0 + h * g[2], k1 + h * g[3], a0 + da, oi, oj,
-                              q));
+      o = max(o, f(x0 + hh * d[0], x1 + hh * d[1], k0 + hh * d[2],
+                   k1 + hh * d[3], a0 + 0.5 * da, e));
+      o = max(o, f(x0 + hh * e[0], x1 + hh * e[1], k0 + hh * e[2],
+                   k1 + hh * e[3], a0 + 0.5 * da, g));
+      o = max(o, f(x0 + h * g[0], x1 + h * g[1], k0 + h * g[2],
+                   k1 + h * g[3], a0 + da, q));
       const T c = h / T(6);
       x0 = x0 + c * (d[0] + T(2) * (e[0] + g[0]) + q[0]);
       x1 = x1 + c * (d[1] + T(2) * (e[1] + g[1]) + q[1]);
@@ -257,8 +344,8 @@ __global__ void __launch_bounds__(256) march_kernel(MarchArgs<T> A) {
       x0 = x0 + cinv * k0;
       x1 = x1 + cinv * k1;
       T F[6];
-      const int o = eval_fields<T, GRAD>(A, r1, r2, x0, x1, a0 + 0.5 * da,
-                                         oi, oj, F);
+      const int o = eval_fields<T, GRAD, STAGED>(
+          A, r1, r2, x0, x1, a0 + 0.5 * da, oi, oj, F);
       const T k0n = k0 - h * (F[2] * k0 + F[4] * k1);
       const T k1n = k1 - h * (F[3] * k0 + F[5] * k1);
       x0 = x0 + h * F[0];
@@ -279,35 +366,65 @@ __global__ void __launch_bounds__(256) march_kernel(MarchArgs<T> A) {
   A.ov[pkt] = ovt;
 }
 
-template <typename T, bool GRAD>
+// Shared memory one SM can give its blocks on sm_90 (227 KB).
+constexpr size_t SMEM_PER_SM = 232448;
+
+template <typename T, bool GRAD, int STEPPER, bool STAGED>
+int launch_kernel(const MarchArgs<T>& A, int threads, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((A.np + threads - 1) / threads);
+  size_t smem = 0;
+  if (STAGED) {
+    const int sw = 6 + 2 * A.margin;
+    const size_t stride = 2 * (size_t)((GRAD ? 2 : 6) * sw * sw) + 1;
+    smem = (size_t)(threads / 32) * 32 * stride * sizeof(T);
+    if (smem > SMEM_PER_SM) return -2;
+    // More than 48 KB a block has to be asked for, per kernel and device;
+    // all of the SM's shared memory goes to the rows. Asked at every
+    // launch: the call is cheap and idempotent, and keeps no state here.
+    cudaError_t err =
+        cudaFuncSetAttribute(march_kernel<T, GRAD, STEPPER, STAGED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_PER_SM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          march_kernel<T, GRAD, STEPPER, STAGED>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  march_kernel<T, GRAD, STEPPER, STAGED>
+      <<<blocks, threads, smem, stream>>>(A);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool GRAD, bool STAGED>
 int launch_stepper(const MarchArgs<T>& A, int stepper, int threads,
                    cudaStream_t stream) {
   if (A.np == 0) return 0;
-  const unsigned blocks = (unsigned)((A.np + threads - 1) / threads);
   switch (stepper) {
     case RK23:
-      march_kernel<T, GRAD, RK23><<<blocks, threads, 0, stream>>>(A);
-      break;
+      return launch_kernel<T, GRAD, RK23, STAGED>(A, threads, stream);
     case RK4:
-      march_kernel<T, GRAD, RK4><<<blocks, threads, 0, stream>>>(A);
-      break;
+      return launch_kernel<T, GRAD, RK4, STAGED>(A, threads, stream);
     case SYMPLECTIC:
-      march_kernel<T, GRAD, SYMPLECTIC><<<blocks, threads, 0, stream>>>(A);
-      break;
+      return launch_kernel<T, GRAD, SYMPLECTIC, STAGED>(A, threads, stream);
     default:
       return -1;
   }
-  return (int)cudaGetLastError();
 }
 
 // nf = 2: (u, v) windows, gradients from the interpolant's derivative;
 // nf = 6: (u, v, ux, uy, vx, vy) windows. stepper: 0 rk23, 1 rk4,
-// 2 symplectic. Returns cudaGetLastError() after the launch, or -1 for a
-// configuration with no kernel.
-template <typename T>
+// 2 symplectic. gathered: p1, p2 are (ncells, K) cell-window arrays and a
+// packet reads row oi*ny + oj (oi, oj trusted to lie in [0, n)); else row
+// `packet`. STAGED needs se == 1 and threads/32 warps' rows within an
+// SM's shared memory.
+// Returns cudaGetLastError() after the launch, -1 for a configuration
+// with no kernel, or -2 for a staged block whose rows pass SMEM_PER_SM.
+template <typename T, bool STAGED>
 int launch(const void* p1, const void* p2, long long sp, long long se,
-           const void* xk, const void* oi, const void* oj, void* out,
-           void* ov, long long np, double sub_dt, int nx, int ny,
+           int gathered, const void* xk, const void* oi, const void* oj,
+           void* out, void* ov, long long np, double sub_dt, int nx, int ny,
            double inv_dx, double inv_dy, double f2, double gH, int margin,
            int nsub, int nf, int stepper, int threads, void* stream) {
   MarchArgs<T> A;
@@ -315,6 +432,7 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
   A.p2 = (const T*)p2;
   A.sp = sp;
   A.se = se;
+  A.gathered = gathered;
   A.xk = (const T*)xk;
   A.oi = (const int*)oi;
   A.oj = (const int*)oj;
@@ -330,12 +448,29 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
   A.gH = gH;
   A.margin = margin;
   A.nsub = nsub;
-  if (threads < 32 || threads > 256 || margin < 0 || nsub < 1) return -1;
+  if (threads < 32 || threads > 256 || threads % 32 || margin < 0 ||
+      nsub < 1)
+    return -1;
+  if (STAGED && se != 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (nf == 2) return launch_stepper<T, true>(A, stepper, threads, s);
-  if (nf == 6) return launch_stepper<T, false>(A, stepper, threads, s);
+  if (nf == 2) return launch_stepper<T, true, STAGED>(A, stepper, threads, s);
+  if (nf == 6) return launch_stepper<T, false, STAGED>(A, stepper, threads, s);
   return -1;
 }
+
+// The C entry of one scalar type and route (march_*.cu), to stand behind
+// `extern "C"`.
+#define SWR_MARCH_ENTRY(name, T, STAGED)                                     \
+  int name(                                                                  \
+      const void* p1, const void* p2, long long sp, long long se,            \
+      int gathered, const void* xk, const void* oi, const void* oj,          \
+      void* out, void* ov, long long np, double sub_dt, int nx, int ny,      \
+      double inv_dx, double inv_dy, double f2, double gH, int margin,        \
+      int nsub, int nf, int stepper, int threads, void* stream) {            \
+    return launch<T, STAGED>(p1, p2, sp, se, gathered, xk, oi, oj, out, ov,  \
+                             np, sub_dt, nx, ny, inv_dx, inv_dy, f2, gH,     \
+                             margin, nsub, nf, stepper, threads, stream);    \
+  }
 
 }  // namespace
 

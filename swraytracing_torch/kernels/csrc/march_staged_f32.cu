@@ -1,0 +1,6 @@
+// The fused wave-packet march (march.cuh) instantiated for float on the
+// staged route (each warp copies its rows into shared memory first).
+
+#include "march.cuh"
+
+extern "C" SWR_MARCH_ENTRY(swr_march_staged_f32, float, true)

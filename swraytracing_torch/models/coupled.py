@@ -87,7 +87,9 @@ class CoupledConfig(NamedTuple):
     # bit-parity with the spectral-gradient grids.
     march_uv_windows: bool = True
     # ONE gather per packet per flow step over both snapshots stacked on
-    # the window axis. Arithmetic is bit-identical to two gathers.
+    # the window axis. Arithmetic is bit-identical to two gathers. No
+    # effect on the (ncells, K) row layout this module sets up: there the
+    # march kernel reads its rows by cell and nothing is gathered.
     march_combined_gather: bool = True
     # Explicit march margin (cells) overriding required_margin's CFL
     # sizing; None = size from dt and the initial max speed.
@@ -220,6 +222,13 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, dt,
         (nf = march.nf — march_n_fields).
       march: fused-march spec. Engagement was decided at setup
         (build_march_spec); None (disengaged) raises NotImplementedError.
+
+    With (ncells, K) window rows (march.tiles_transposed, what
+    build_march_spec always makes) the packets march straight from the two
+    window arrays (march_window.fused_march_gathered): no stacked copy, no
+    gathered copy, whatever march.combined_gather says. A hand-made spec
+    with (K, ncells) windows gathers first, in one gather
+    (combined_gather) or two, and calls march_window.fused_march.
     """
     if march is None:
         raise _per_stage_path_missing()
@@ -244,7 +253,7 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, dt,
             "MarchSpec built for a different stepper configuration: "
             f"{march.stepper} x{march.n_substeps} vs {stepper} x"
             f"{n_substeps}; rebuild the setup with the new config")
-    # Fused-march path: windows gathered ONCE per flow step with a
+    # Fused-march path: windows read ONCE per flow step with a
     # `margin` drift allowance, all substeps in one kernel launch.
     # Identical arithmetic to a per-stage path as long as no packet drifts
     # more than `margin` cells within the step — the running max of the
@@ -258,7 +267,12 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, dt,
     x, k = carry.packet_x, carry.packet_k
     oi, oj = mw.packet_cells(x[0], x[1], march)
     xk = torch.cat([x, k], dim=0)
-    if march.combined_gather:
+    if march.tiles_transposed:
+        # (ncells, K) rows: the march reads each packet's row of both
+        # window arrays by its cell; nothing is stacked or gathered first.
+        out, ov = mw.fused_march_gathered(win1, win2, xk, oi, oj, sub_dt,
+                                          march)
+    elif march.combined_gather:
         # Both snapshots' windows stacked on the K axis -> ONE gather per
         # packet per flow step.
         winc = torch.cat([win1, win2],

@@ -71,7 +71,9 @@ class Coupled2Config(NamedTuple):
     # tensor by differentiating the Lagrange interpolant.
     march_uv_windows: bool = True
     # ONE gather per packet per flow step over both snapshots stacked on
-    # the window axis. Arithmetic is bit-identical to two gathers.
+    # the window axis. Arithmetic is bit-identical to two gathers. No
+    # effect on the (ncells, K) row layout the setup makes: there the
+    # march kernel reads its rows by cell and nothing is gathered.
     march_combined_gather: bool = True
     window_min_np: int = 65536
     # Explicit march margin (cells) overriding required_margin's CFL

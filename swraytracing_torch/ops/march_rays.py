@@ -75,10 +75,10 @@ def march_rays_cuda(fields, x0, k0, grid: SpectralGrid, disp, dt: float,
         raise ValueError(f"march_rays_cuda has kernels for order in "
                          f"{_ORDERS}, got {order}")
     Np = x0.shape[-1]
-    _require_cuda("march_rays_cuda", "fields", fields, x0.dtype,
-                  (6, grid.nx, grid.ny))
-    _require_cuda("march_rays_cuda", "x0", x0, x0.dtype, (2, Np))
-    _require_cuda("march_rays_cuda", "k0", k0, x0.dtype, (2, Np))
+    _require_cuda("march_rays_cuda",
+                  ("fields", fields, x0.dtype, (6, grid.nx, grid.ny)),
+                  ("x0", x0, x0.dtype, (2, Np)),
+                  ("k0", k0, x0.dtype, (2, Np)))
     xN = torch.empty_like(x0)
     kN = torch.empty_like(k0)
     if Np == 0:  # nothing to launch

@@ -18,6 +18,11 @@ that step can touch. The march then needs NO gathers at all:
     kernel   all n_substeps x stages in one launch: Lagrange weights,
              margin shift, time blend, dispersion, RK/symplectic update
 
+With (ncells, K) window rows (`tiles_transposed`) the gather is part of
+the kernel: a packet reads row cell(x) of both snapshots' window arrays
+itself (march_gathered_cuda / fused_march_gathered), and no gathered copy
+exists.
+
 Within-margin arithmetic is IDENTICAL to the reference stencil: the same
 6 Lagrange weights (Durran Ch. 6, interpolate.m:37-44) are placed at the
 packet's current cell inside the wider window; positions that drift past
@@ -28,17 +33,21 @@ Three device kernels, hand-written CUDA under kernels/csrc, each with its
 plain PyTorch version beside its wrapper here:
 
   march_cuda          (csrc/march.cuh)          plain: march_reference
+  march_gathered_cuda (the same kernel, rows  plain: march_gathered_reference
+                       read by cell)
   transpose_cuda      (csrc/transpose.cu)       plain: transpose_reference
   build_windows_cuda  (csrc/build_windows.cu)   plain: build_windows_reference
 
-`fused_march`, `window_transpose` and `build_windows_fused` are the
-differentiable entry points. They pick by the device of the tensor they
-are given: a CPU tensor goes to the plain version, a CUDA tensor to the
-kernel. Nothing falls back: on a CUDA tensor the kernel launches or the
+`fused_march`, `fused_march_gathered`, `window_transpose` and
+`build_windows_fused` are the differentiable entry points. They pick by
+the device of the tensor they are given: a CPU tensor goes to the plain
+version, a CUDA tensor to the kernel. Nothing falls back: on a CUDA tensor the kernel launches or the
 call raises.
 
 Layouts: packet windows are (K, Np), or (Np, K) gather rows when
-`tiles_transposed`. The CUDA kernel takes both through strides.
+`tiles_transposed`. The CUDA kernel takes both through strides. For the
+row layouts it first copies each warp's rows into shared memory (the
+`staged` route) while they fit; `march_route` is the rule.
 """
 
 from __future__ import annotations
@@ -62,6 +71,11 @@ __all__ = [
     "march_reference",
     "march_cuda",
     "fused_march",
+    "march_route",
+    "staged_block_limit",
+    "march_gathered_reference",
+    "march_gathered_cuda",
+    "fused_march_gathered",
     "transpose_reference",
     "transpose_cuda",
     "window_transpose",
@@ -86,8 +100,12 @@ class MarchSpec(NamedTuple):
     nf: int = 6                    # fields: u, v, ux, uy, vx, vy
     # Threads (= packets) per CUDA block of the march kernel. A tuning
     # value only: the kernel masks its ragged last block itself, so the
-    # packet count need not be a multiple of it.
-    block: int = 128
+    # packet count need not be a multiple of it. On the staged route
+    # (march_route) a block's warps must fit their rows into one SM's
+    # shared memory; a block too large for that raises. One warp a block
+    # packs an SM fullest whatever the row size, and measured no slower
+    # than larger blocks on either route.
+    block: int = 32
     tiles_transposed: bool = False # pw passed as (Np, K) gather rows
     # Windows carry only (u, v) (nf=2); the march evaluates the
     # velocity-gradient tensor by DIFFERENTIATING the Lagrange
@@ -97,7 +115,10 @@ class MarchSpec(NamedTuple):
     grad_from_interp: bool = False
     # Both snapshots' packet windows arrive in ONE gathered array,
     # stacked on the K axis ((2K, Np), or (Np, 2K) tiles_transposed).
-    # fused_march's pw2 argument is then a dummy.
+    # fused_march's pw2 argument is then a dummy. Read by march_reference,
+    # march_cuda and fused_march only: the gathered entries
+    # (march_gathered_*, what the lock-step calls for (ncells, K) rows)
+    # take the two window arrays themselves and gather nothing.
     combined_gather: bool = False
     # Build the (ncells, K) window array in ONE kernel
     # (build_windows_fused) instead of shifted copies + the tiled
@@ -216,11 +237,21 @@ def gather_packet_windows(W: torch.Tensor, oi, oj, spec: MarchSpec):
     """One row (or column) gather per packet: W -> pw.
 
     tiles_transposed=False: W is (K, ncells); gathers columns -> (K, Np).
-    tiles_transposed=True: W is (ncells, K); gathers rows -> (Np, K)."""
+    tiles_transposed=True: W is (ncells, K); gathers rows -> (Np, K).
+
+    Feeds the pre-gathered march (march_reference / march_cuda /
+    fused_march): the (K, ncells) layout's route, and the plain version of
+    the gathered march. On the card the lock-step does not come here for
+    (ncells, K) rows; the kernel reads them by cell. Counts its calls in
+    `gather_packet_windows.calls`, so a run can show that."""
+    gather_packet_windows.calls += 1
     starts = oi.to(torch.int64) * spec.ny + oj
     if spec.tiles_transposed:
         return W.index_select(0, starts)      # (Np, K)
     return W.index_select(1, starts)          # (K, Np)
+
+
+gather_packet_windows.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +493,21 @@ def march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
     return torch.stack(r[:4]), r[4]
 
 
+def march_gathered_reference(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec):
+    """Plain version of march_gathered_cuda, the CPU path, and what
+    fused_march_gathered differentiates: gather each packet's window from
+    the two cell-window arrays (build_gather_windows' layout: (ncells, K)
+    rows when spec.tiles_transposed, else (K, ncells)), then
+    march_reference on the two gathered arrays. spec.combined_gather is
+    not read: stacking the two snapshots before one gather and splitting
+    them again gives these same values bit for bit. Returns
+    (xk_out (4, Np), overflow (Np,) int32)."""
+    pw1 = gather_packet_windows(win1, oi, oj, spec)
+    pw2 = gather_packet_windows(win2, oi, oj, spec)
+    return march_reference(pw1, pw2, xk, oi, oj, sub_dt,
+                           spec._replace(combined_gather=False))
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers (kernels/csrc/march.cuh, transpose.cu, build_windows.cu)
 # ---------------------------------------------------------------------------
@@ -469,45 +515,139 @@ def march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
-def _require_cuda(name: str, key: str, t: torch.Tensor, dtype, shape):
-    """What a kernel wrapper takes: a contiguous CUDA tensor of this dtype
-    and shape. Anything else raises; nothing is converted on the way."""
-    if not t.is_cuda:
-        raise ValueError(
-            f"{name} launches a CUDA kernel: `{key}` lies on {t.device}, "
-            "not on a CUDA device")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: `{key}` must be contiguous")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: `{key}` must be {dtype} {tuple(shape)}; "
-                         f"got {t.dtype} {tuple(t.shape)}")
+def _require_cuda(name: str, *tensors):
+    """What a kernel wrapper takes: each of `tensors`, given as (key,
+    tensor, dtype, shape), a contiguous CUDA tensor of this dtype and
+    shape. Types and shapes of all are checked first, then where they lie.
+    Anything else raises; nothing is converted on the way."""
+    for key, t, dtype, shape in tensors:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name}: `{key}` must be {dtype} {tuple(shape)}; got "
+                f"{t.dtype} {tuple(t.shape)}")
+    for key, t, _, _ in tensors:
+        if not t.is_cuda:
+            raise ValueError(
+                f"{name} launches a CUDA kernel: `{key}` lies on {t.device}, "
+                "not on a CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: `{key}` must be contiguous")
 
 
-def march_cuda(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
-    """The fused march on the card (kernels/csrc/march.cuh): arguments and
-    results as march_reference, CUDA tensors only. One thread per packet;
-    `sub_dt` is passed to the kernel as a scalar. Launches on the current
-    stream and does not synchronise. Counts its launches in
-    `march_cuda.launches`."""
+# Shared memory one SM can give its blocks on sm_90 (227 KB): the same
+# number as SMEM_PER_SM in kernels/csrc/march.cuh.
+SMEM_PER_SM = 232448
+
+
+def staged_warp_bytes(spec: MarchSpec, dtype: torch.dtype) -> int:
+    """Shared memory one warp's 32 rows take on the staged route: both
+    snapshots' K values per packet, rows an odd 2K + 1 elements apart."""
+    return 32 * (2 * spec.K + 1) * (torch.finfo(dtype).bits // 8)
+
+
+def staged_block_limit(spec: MarchSpec, dtype: torch.dtype) -> int:
+    """The largest MarchSpec.block the staged route takes for these rows:
+    as many warps as fit their rows into one SM's shared memory, at most
+    256 threads; 0 where not even one warp's rows fit."""
+    return min(256, 32 * (SMEM_PER_SM // staged_warp_bytes(spec, dtype)))
+
+
+def march_route(spec: MarchSpec, dtype: torch.dtype) -> str:
+    """Which way the march kernel reads its window rows, from the layout
+    and (2K, element size) alone: "staged" (each warp first copies its 32
+    packets' rows into shared memory with coalesced asynchronous copies)
+    for the row layouts while one warp's rows fit in an SM's shared
+    memory (staging measured no slower than per-thread loads even with a
+    single warp resident); else "direct" (every thread reads its own row
+    from device memory as it goes). The (K, Np) layout is always direct:
+    its loads are coalesced across packets already. A rule on shapes, not
+    a fallback: a staged launch that fails raises."""
+    if not spec.tiles_transposed:
+        return "direct"
+    return "staged" if staged_block_limit(spec, dtype) >= 32 else "direct"
+
+
+def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
+                  sub_dt, spec: MarchSpec, route):
+    """Launch the march kernel for `wrapper` (march_cuda or
+    march_gathered_cuda) on checked arguments (p1, p2: device addresses of
+    the two snapshots' windows), by `route` or, where that is None, by the
+    route march_route gives. Adds the launch to `wrapper.launches` and,
+    under the route it took, to `wrapper.launches_by_route`. Returns
+    (xk_out, overflow)."""
     from .. import kernels
 
-    _check_spec(spec)
-    if xk.dtype not in _DTYPE_CODE:
-        raise ValueError(f"march_cuda: xk must be float32 or float64, got "
-                         f"{xk.dtype}")
+    name = wrapper.__name__
+    if route is None:
+        route = march_route(spec, xk.dtype)
+    if route not in ("staged", "direct"):
+        raise ValueError(f"{name}: route must be 'staged', 'direct' or None, "
+                         f"got {route!r}")
     if not (32 <= spec.block <= 256 and spec.block % 32 == 0):
         raise ValueError("MarchSpec.block must be a multiple of 32 in "
                          f"[32, 256], got {spec.block}")
+    if route == "staged":
+        limit = staged_block_limit(spec, xk.dtype)
+        if spec.block > limit:
+            raise ValueError(
+                f"{name}: the staged route keeps 32 rows of 2K+1 = "
+                f"{2 * spec.K + 1} {xk.dtype} values per warp in shared "
+                f"memory ({staged_warp_bytes(spec, xk.dtype)} bytes of "
+                f"{SMEM_PER_SM} per SM), so MarchSpec.block can be at most "
+                f"{limit} here; got {spec.block}")
+    Np = xk.shape[-1]
+    out = torch.empty_like(xk)
+    ov = torch.empty((Np,), dtype=torch.int32, device=xk.device)
+    if Np == 0:  # nothing to launch
+        return out, ov
+    lib = kernels.load()
+    entry = getattr(lib, "swr_march_"
+                    + ("staged_" if route == "staged" else "")
+                    + ("f32" if xk.dtype == torch.float32 else "f64"))
+    with torch.cuda.device(xk.device):
+        err = entry(
+            p1, p2, s_packet, s_elem, int(gathered),
+            xk.data_ptr(), oi.data_ptr(), oj.data_ptr(),
+            out.data_ptr(), ov.data_ptr(), Np, float(sub_dt),
+            spec.nx, spec.ny, 1.0 / spec.dx, 1.0 / spec.dy,
+            spec.f ** 2, spec.Cg ** 2, spec.margin, spec.n_substeps,
+            spec.nf, _STEPPERS.index(spec.stepper), spec.block,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, f"swr_march ({route})")
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
+    return out, ov
+
+
+def _require_march_inputs(name, windows, xk, oi, oj, spec: MarchSpec):
+    """The checks both march wrappers make; `windows` as _require_cuda
+    takes them."""
+    _check_spec(spec)
+    if xk.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: xk must be float32 or float64, got "
+                         f"{xk.dtype}")
+    Np = xk.shape[-1]
+    _require_cuda(name, *windows, ("xk", xk, xk.dtype, (4, Np)),
+                  ("oi", oi, torch.int32, (Np,)),
+                  ("oj", oj, torch.int32, (Np,)))
+
+
+def march_cuda(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
+    """The fused march on the card (kernels/csrc/march.cuh) from
+    pre-gathered packet windows: arguments and results as march_reference,
+    CUDA tensors only. One thread per packet, rows read by the route
+    march_route gives; `sub_dt` is passed to the kernel as a scalar.
+    Launches on the current stream and does not synchronise. Counts its
+    launches in `march_cuda.launches`, and by the route each took in
+    `march_cuda.launches_by_route`."""
     Np = xk.shape[-1]
     K = spec.K
     rows = 2 * K if spec.combined_gather else K
     pw_shape = (Np, rows) if spec.tiles_transposed else (rows, Np)
-    _require_cuda("march_cuda", "xk", xk, xk.dtype, (4, Np))
-    _require_cuda("march_cuda", "oi", oi, torch.int32, (Np,))
-    _require_cuda("march_cuda", "oj", oj, torch.int32, (Np,))
-    _require_cuda("march_cuda", "pw1", pw1, xk.dtype, pw_shape)
+    windows = [("pw1", pw1, xk.dtype, pw_shape)]
     if not spec.combined_gather:
-        _require_cuda("march_cuda", "pw2", pw2, xk.dtype, pw_shape)
+        windows.append(("pw2", pw2, xk.dtype, pw_shape))
+    _require_march_inputs("march_cuda", windows, xk, oi, oj, spec)
 
     # Strides in elements: from one packet to the next, and from one
     # window component to the next. Both layouts are the same kernel.
@@ -520,30 +660,46 @@ def march_cuda(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
         p2 = p1 + K * s_elem * pw1.element_size()
     else:
         p2 = pw2.data_ptr()
-
-    out = torch.empty_like(xk)
-    ov = torch.empty((Np,), dtype=torch.int32, device=xk.device)
-    if Np == 0:  # nothing to launch
-        return out, ov
-    sub_dt = float(sub_dt)
-    lib = kernels.load()
-    entry = lib.swr_march_f32 if xk.dtype == torch.float32 \
-        else lib.swr_march_f64
-    with torch.cuda.device(xk.device):
-        err = entry(
-            p1, p2, s_packet, s_elem,
-            xk.data_ptr(), oi.data_ptr(), oj.data_ptr(),
-            out.data_ptr(), ov.data_ptr(), Np, sub_dt,
-            spec.nx, spec.ny, 1.0 / spec.dx, 1.0 / spec.dy,
-            spec.f ** 2, spec.Cg ** 2, spec.margin, spec.n_substeps,
-            spec.nf, _STEPPERS.index(spec.stepper), spec.block,
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, "swr_march")
-    march_cuda.launches += 1
-    return out, ov
+    return _launch_march(march_cuda, p1, p2, s_packet, s_elem, False, xk, oi,
+                         oj, sub_dt, spec, None)
 
 
 march_cuda.launches = 0
+march_cuda.launches_by_route = {"staged": 0, "direct": 0}
+
+
+def march_gathered_cuda(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec,
+                        route=None):
+    """The fused march on the card with the gather inside the kernel
+    (kernels/csrc/march.cuh): arguments and results as
+    march_gathered_reference, CUDA tensors only, (ncells, K) window rows
+    only (spec.tiles_transposed; a (K, ncells) array has no contiguous row
+    to read, that layout gathers first and calls march_cuda). A packet
+    reads row oi*ny + oj of win1 and of win2; `oi`, `oj` are trusted to lie
+    in [0, nx) and [0, ny), as packet_cells makes them. Rows are read by
+    the route march_route gives; `route` ("staged" or "direct") names one
+    instead, to hold the two against each other and to time both (the
+    results are the same bits; a staged launch whose block does not fit
+    raises). Launches on the current stream and does not synchronise.
+    Counts its launches in `march_gathered_cuda.launches`, and by the route
+    each took in `march_gathered_cuda.launches_by_route`."""
+    name = "march_gathered_cuda"
+    if not spec.tiles_transposed:
+        raise ValueError(
+            f"{name} reads (ncells, K) window rows (tiles_transposed=True); "
+            "for (K, ncells) arrays gather with gather_packet_windows and "
+            "call march_cuda")
+    win_shape = (spec.nx * spec.ny, spec.K)
+    _require_march_inputs(name, [("win1", win1, xk.dtype, win_shape),
+                                 ("win2", win2, xk.dtype, win_shape)],
+                          xk, oi, oj, spec)
+    return _launch_march(march_gathered_cuda, win1.data_ptr(),
+                         win2.data_ptr(), spec.K, 1, True, xk, oi, oj, sub_dt,
+                         spec, route)
+
+
+march_gathered_cuda.launches = 0
+march_gathered_cuda.launches_by_route = {"staged": 0, "direct": 0}
 
 
 def transpose_reference(W: torch.Tensor) -> torch.Tensor:
@@ -561,7 +717,7 @@ def transpose_cuda(W: torch.Tensor) -> torch.Tensor:
     if W.dim() != 2 or W.dtype not in _DTYPE_CODE:
         raise ValueError("transpose_cuda takes a 2-D float32/float64 tensor; "
                          f"got {W.dtype} {tuple(W.shape)}")
-    _require_cuda("transpose_cuda", "W", W, W.dtype, W.shape)
+    _require_cuda("transpose_cuda", ("W", W, W.dtype, W.shape))
     A, B = W.shape
     out = torch.empty((B, A), dtype=W.dtype, device=W.device)
     if A == 0 or B == 0:
@@ -592,7 +748,7 @@ def build_windows_cuda(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
     if F.dim() != 3 or F.dtype not in _DTYPE_CODE:
         raise ValueError("build_windows_cuda takes (nf, nx, ny) float32/"
                          f"float64 fields; got {F.dtype} {tuple(F.shape)}")
-    _require_cuda("build_windows_cuda", "F", F, F.dtype, F.shape)
+    _require_cuda("build_windows_cuda", ("F", F, F.dtype, F.shape))
     F = F[:spec.nf]  # a leading slice of a contiguous tensor: contiguous
     nf, nx, ny = F.shape
     if nf != spec.nf:
@@ -673,38 +829,72 @@ def window_transpose(W: torch.Tensor) -> torch.Tensor:
     return _WindowTranspose.apply(W)
 
 
+def _march_forward(ctx, kernel, plain, w1, w2, xk, oi, oj, sub_dt, spec):
+    """Forward of a differentiable march: its kernel on CUDA tensors, its
+    plain version on CPU tensors; the inputs are saved for the backward."""
+    out, ov = (kernel if xk.is_cuda else plain)(w1, w2, xk, oi, oj, sub_dt,
+                                                spec)
+    dt_is_tensor = isinstance(sub_dt, torch.Tensor)
+    ctx.save_for_backward(w1, w2, xk, oi, oj,
+                          *([sub_dt] if dt_is_tensor else []))
+    ctx.sub_dt = None if dt_is_tensor else sub_dt
+    ctx.spec = spec
+    ctx.mark_non_differentiable(ov)
+    return out, ov
+
+
+def _march_backward(ctx, plain, ct_xk):
+    """Cotangents of a march's inputs (w1, w2, xk, oi, oj, sub_dt, spec) by
+    autograd through its plain version on the saved inputs."""
+    w1, w2, xk, oi, oj, *rest = ctx.saved_tensors
+    sub_dt = rest[0] if rest else ctx.sub_dt
+    needs = ctx.needs_input_grad
+    args = [w1, w2, xk, sub_dt]
+    wanted = [needs[0], needs[1], needs[2], needs[5]]
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(True) if w else a
+                  for a, w in zip(args, wanted)]
+        out, _ = plain(leaves[0], leaves[1], leaves[2], oi, oj, leaves[3],
+                       ctx.spec)
+        diff = [a for a, w in zip(leaves, wanted) if w]
+        grads = iter(torch.autograd.grad(out, diff, ct_xk,
+                                         allow_unused=True))
+    g = [next(grads) if w else None for w in wanted]
+    return g[0], g[1], g[2], None, None, g[3], None
+
+
 class _FusedMarch(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pw1, pw2, xk, oi, oj, sub_dt, spec):
-        if xk.is_cuda:
-            out, ov = march_cuda(pw1, pw2, xk, oi, oj, sub_dt, spec)
-        else:
-            out, ov = march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec)
-        dt_is_tensor = isinstance(sub_dt, torch.Tensor)
-        ctx.save_for_backward(pw1, pw2, xk, oi, oj,
-                              *([sub_dt] if dt_is_tensor else []))
-        ctx.sub_dt = None if dt_is_tensor else sub_dt
-        ctx.spec = spec
-        ctx.mark_non_differentiable(ov)
-        return out, ov
+    def forward(ctx, *inputs):
+        return _march_forward(ctx, march_cuda, march_reference, *inputs)
 
     @staticmethod
     def backward(ctx, ct_xk, _ct_ov):
-        pw1, pw2, xk, oi, oj, *rest = ctx.saved_tensors
-        sub_dt = rest[0] if rest else ctx.sub_dt
-        needs = ctx.needs_input_grad
-        args = [pw1, pw2, xk, sub_dt]
-        wanted = [needs[0], needs[1], needs[2], needs[5]]
-        with torch.enable_grad():
-            leaves = [a.detach().requires_grad_(True) if w else a
-                      for a, w in zip(args, wanted)]
-            out, _ = march_reference(leaves[0], leaves[1], leaves[2], oi, oj,
-                                     leaves[3], ctx.spec)
-            diff = [a for a, w in zip(leaves, wanted) if w]
-            grads = iter(torch.autograd.grad(out, diff, ct_xk,
-                                             allow_unused=True))
-        g = [next(grads) if w else None for w in wanted]
-        return g[0], g[1], g[2], None, None, g[3], None
+        return _march_backward(ctx, march_reference, ct_xk)
+
+
+class _FusedMarchGathered(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *inputs):
+        return _march_forward(ctx, march_gathered_cuda,
+                              march_gathered_reference, *inputs)
+
+    @staticmethod
+    def backward(ctx, ct_xk, _ct_ov):
+        return _march_backward(ctx, march_gathered_reference, ct_xk)
+
+
+def fused_march_gathered(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec):
+    """Differentiable fused march from the two cell-window arrays.
+    Forward: march_gathered_cuda on CUDA tensors (gather inside the
+    kernel), march_gathered_reference on CPU tensors. Backward: always
+    differentiates march_gathered_reference on the saved inputs (there is
+    no backward kernel, as in the JAX package), giving gradients for win1
+    and win2 (a scatter-add over the packets that share a cell), xk and
+    sub_dt (when it is a tensor), none for oi, oj. Saves the two window
+    arrays, not a gathered copy. Returns (xk_out (4, Np), overflow (Np,)
+    int32)."""
+    return _FusedMarchGathered.apply(win1, win2, xk, oi, oj, sub_dt, spec)
 
 
 def fused_march(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):

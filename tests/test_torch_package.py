@@ -67,7 +67,8 @@ def test_sources_name_no_jax_import():
 def test_kernel_sources_ship_with_the_package():
     names = [s.name for s in kernels.sources()]
     assert names == ["build_windows.cu", "march_f32.cu", "march_f64.cu",
-                     "march_rays.cu", "transpose.cu"]
+                     "march_rays.cu", "march_staged_f32.cu",
+                     "march_staged_f64.cu", "transpose.cu"]
     csrc = kernels.sources()[0].parent
     for s in kernels.sources():
         assert 'extern "C"' in s.read_text()
@@ -140,6 +141,7 @@ def test_cuda_kernels_unreachable_from_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mr.march_rays_cuda(F, x, k, grid, disp, 0.01, 3)
     assert mw.march_cuda.launches == 0 and mw.transpose_cuda.launches == 0
+    assert mw.march_gathered_cuda.launches == 0
     assert mw.build_windows_cuda.launches == 0
     assert mr.march_rays_cuda.launches == 0
     assert kernels._lib is None
