@@ -18,19 +18,26 @@ it and read just after:
   main_path_qg1  the one-layer coupled model at the same size with the
                  one-kernel window build (march + build_windows);
   frozen_path    2^20 packets marched 50 symplectic steps through a frozen
-                 512^2 one-layer snapshot in one launch (march_rays).
+                 512^2 one-layer snapshot, ordered by cell, one launch per
+                 segment of steps (march_rays); then a sweep of the segment
+                 length, which the constant in the splitting rule is read
+                 from, and the float64 time at full width.
 
 Each phase prints one JSON line. Any failed phase raises, so the exit code
 is non-zero; without a CUDA device the script fails at once and runs
 nothing on the CPU in its place.
 
 Last lines of the output: a {"kernels": [...]} line (per kernel: its time
-at the main path's shapes, the least time the card could take for the same
+at the main path's shapes, per call inside a run of calls queued back to
+back (`single_launch_ms`: one call between two events, which also counts
+the host's way to the launch), the least time the card could take for the same
 bytes and operations, the plain version's time, a library call's time
 where there is one, its launches on the main paths, its error against the
 plain version; the march row also holds `replaced_ms`, the time of the
 stacked copy, the row gather and the pre-gathered march that the gathered
-march took the place of, measured in the same run), the card's name and
+march took the place of, measured in the same run; the march_rays row the
+unordered single launch of the same kernel as `replaced_ms` and the time of
+its orderings and copies as `ordering_ms`), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}. The `kernel_bounds` line before them
 holds what each bound was computed from (bytes, operations, shapes) and
 the tolerances the errors were held to. The script takes no arguments.
@@ -83,13 +90,16 @@ SOURCES = {
 }
 # "march" is the entry the coupled paths launch (rows read by cell);
 # "march_pregathered" is the same kernel behind march_cuda, which no main
-# path launches (it has no row of its own in the `kernels` line).
+# path launches (it has no row of its own in the `kernels` line);
+# "cell_order" is the counting sort of march_rays.cu that march_rays_cuda
+# runs before each of its launches (counted in the march_rays row).
 WRAPPERS = {
     "march": mw.march_gathered_cuda,
     "march_pregathered": mw.march_cuda,
     "transpose": mw.transpose_cuda,
     "build_windows": mw.build_windows_cuda,
     "march_rays": mr.march_rays_cuda,
+    "cell_order": mr.cell_order_cuda,
 }
 
 # float32 tolerance of the march kernel against its plain version. Both do
@@ -144,6 +154,17 @@ def cuda_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_run(fn, launches=20, reps=5):
+    """Time of one fn() in ms inside a run of `launches` calls queued back
+    to back between two CUDA events (median of `reps` runs). One call
+    between two events also counts the host's way from the first event to
+    the launch (about 0.05 ms through a kernel wrapper here), which is as
+    long as the shortest kernels; in a run the launches queue up and the
+    card's own time per call remains, or the host's time per call where
+    that is the longer."""
+    return cuda_ms(lambda: [fn() for _ in range(launches)], reps) / launches
 
 
 MARCH_WRAPPERS = (mw.march_gathered_cuda, mw.march_cuda)
@@ -348,16 +369,26 @@ def check_gathered_march(dtype, rtol, atol, F1, F2, x, k, xr, kr, spec_for,
 
 
 def check_build_windows(dev):
-    """K3 against its plain version and the two-pass route: exact."""
+    """K3 against its plain version and the two-pass route: exact. SW = 8,
+    10 (a thread's four components straddle a window row) and 12; two and
+    six fields; nx != ny; sides that no run of cells or block divides; a
+    row longer than one run (150 > 64); a window as wide as the grid (SW =
+    8 on 8 x 12) and wider (SW = 12 on 9 x 71); a window too large for the
+    shared-memory tile (float64, six fields, SW = 30), which the kernel
+    reads per thread."""
     g = torch.Generator(device=dev).manual_seed(11)
-    # square, non-square, and sides that no tile or block divides
-    grids = [(64, 64), (48, 80), (37, 53)]
-    cases = 0
+    grids = [(64, 64), (48, 80), (37, 53), (24, 150), (9, 71), (8, 12)]
+    cases, unstaged = 0, 0
     for dtype in (torch.float32, torch.float64):
         for nx, ny in grids:
             F = torch.randn((6, nx, ny), dtype=dtype, device=dev, generator=g)
             for nf in (2, 6):
-                for margin in (1, 2, 3):
+                margins = [1, 2, 3]
+                if (nx, ny) == (37, 53) and nf == 6:
+                    margins.append(12)
+                for margin in margins:
+                    if 3 + margin > min(nx, ny):
+                        continue  # the window does not fit this grid
                     spec = mw.MarchSpec(
                         nx=nx, ny=ny, dx=1.0, dy=1.0, f=3.0, Cg=1.0, nf=nf,
                         grad_from_interp=nf == 2, margin=margin,
@@ -381,7 +412,10 @@ def check_build_windows(dev):
                         raise AssertionError(f"{label}: build_gather_windows "
                                              "took another route")
                     cases += 1
-    return {"cases": cases, "grids": grids, "margins": [1, 2, 3],
+                    unstaged += margin == 12 and dtype == torch.float64
+    if unstaged != 1:
+        raise AssertionError("the window too large to stage was not built")
+    return {"cases": cases, "grids": grids, "margins": [1, 2, 3, 12],
             "nf": [2, 6], "exact": True, "dtypes": ["float32", "float64"]}
 
 
@@ -411,9 +445,40 @@ def compare_rays(got, want, atol, label):
     return worst
 
 
+def unordered_march(fields, x0, k0, grid, disp, dt, nsteps, order=2):
+    """K4 as one launch on the packets as they come: what the ordered,
+    segmented march is held equal to, bit for bit."""
+    return mr.march_rays_cuda_by(fields, x0, k0, grid, disp, dt, nsteps,
+                                 order, segment=max(1, nsteps),
+                                 ordered=False)
+
+
+def require_same_bits(got, want, label):
+    for name, g, w in zip("xk", got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"{label}: {name} differs in {int((g != w).sum())} of "
+                f"{g.numel()} values")
+
+
+def check_cell_order(x, grid, label):
+    """The counting sort of march_rays.cu against its plain version: a
+    permutation of all packets that puts the plain keys in order."""
+    perm = mr.cell_order_cuda(x, grid).long()
+    keys = mr.packet_cell_keys(x, grid)
+    n_p = x.shape[1]
+    if not torch.equal(torch.sort(perm).values,
+                       torch.arange(n_p, device=x.device)):
+        raise AssertionError(f"{label}: not a permutation")
+    if not torch.equal(keys[perm], keys[mr.cell_order_reference(x, grid)]):
+        raise AssertionError(f"{label}: the keys are not in order")
+
+
 def check_march_rays(dev):
     """K4 against its plain version: orders 1-3, a ragged packet count,
-    packets planted on the mod/floor edges."""
+    packets planted on the mod/floor edges; and in every case the ordered,
+    segmented march (the entry itself, and named segment lengths) against
+    one launch on the unordered packets, bit for bit."""
     nx, n_p = 64, 2 ** 16 + 37   # not a multiple of the block
     L = 2.0 * np.pi
     dx = L / nx
@@ -437,20 +502,60 @@ def check_march_rays(dev):
             edge = torch.tensor(cells * dx, dtype=dtype, device=dev)
             x0[0, col] = torch.nextafter(edge, torch.zeros_like(edge))
             x0[1, col] = torch.nextafter(edge, 10.0 * torch.ones_like(edge))
-        worst = 0.0
+        check_cell_order(x0, grid, f"cell_order {dtype}")
+        worst, cases = 0.0, 0
         for order in (1, 2, 3):
             args = (fields, x0, k0, grid, disp, 0.005, RAYS_STEPS, order)
             got = mr.march_rays_cuda(*args)
+            segments = list(mr.march_rays_cuda.last_segments)
             torch.cuda.synchronize()
+            if len(segments) < 2 or sum(segments) != RAYS_STEPS:
+                raise AssertionError(f"march_rays {dtype}: segments "
+                                     f"{segments}")
+            label = f"march_rays {dtype} order={order}"
             worst = max(worst, compare_rays(
-                got, mr.march_rays_reference(*args), atol,
-                f"march_rays {dtype} order={order}"))
-        # no steps: the state comes back bit for bit
+                got, mr.march_rays_reference(*args), atol, label))
+            single = unordered_march(*args)
+            require_same_bits(got, single, label + " ordered vs unordered")
+            cases += 1
+        # a segment that does not divide the steps (8 launches of 7 and 6),
+        # one step a segment, segments without the ordering
+        args = (fields, x0, k0, grid, disp, 0.005, RAYS_STEPS)
+        single = unordered_march(*args)
+        for kw in ({"segment": 7}, {"segment": 1},
+                   {"segment": 7, "ordered": False}):
+            require_same_bits(mr.march_rays_cuda_by(*args, **kw), single,
+                              f"march_rays {dtype} {kw}")
+            cases += 1
+        if mr.march_rays_cuda.last_segments != [7, 7, 6, 6, 6, 6, 6, 6]:
+            raise AssertionError("segments of 50 steps by 7: "
+                                 f"{mr.march_rays_cuda.last_segments}")
+        # all packets in one cell (every atomic of the ordering on one
+        # counter), spread inside it
+        xc = 10.05 * dx + 0.9 * dx * (x0 / L)
+        check_cell_order(xc, grid, f"cell_order one cell {dtype}")
+        if int(torch.unique(mr.packet_cell_keys(xc, grid)).numel()) != 1:
+            raise AssertionError("the one-cell case covers several cells")
+        args = (fields, xc, k0, grid, disp, 0.005, 20)
+        got = mr.march_rays_cuda(*args)
+        require_same_bits(got, unordered_march(*args),
+                          f"march_rays {dtype} one cell")
+        worst = max(worst, compare_rays(
+            got, mr.march_rays_reference(*args), atol,
+            f"march_rays {dtype} one cell"))
+        cases += 1
+        # no steps: the state comes back bit for bit, nothing is launched
+        before = mr.march_rays_cuda.launches
         same = mr.march_rays_cuda(fields, x0, k0, grid, disp, 0.005, 0)
         if not (torch.equal(same[0], x0) and torch.equal(same[1], k0)):
             raise AssertionError(f"{dtype}: nsteps=0 is not the identity")
-        report[str(dtype)] = {"cases": 4, "max_abs_err": worst, "atol": atol,
-                              "share_of_tolerance": worst / atol}
+        if mr.march_rays_cuda.launches != before:
+            raise AssertionError(f"{dtype}: nsteps=0 launched a kernel")
+        cases += 1
+        report[str(dtype)] = {"cases": cases, "max_abs_err": worst,
+                              "atol": atol, "share_of_tolerance": worst / atol,
+                              "ordered_equals_unordered_bit_for_bit": True,
+                              "segments_of_the_entry": segments}
     # an order the library has no kernel for: the wrapper raises, and so
     # does the C entry's -1
     before = mr.march_rays_cuda.launches
@@ -462,7 +567,7 @@ def check_march_rays(dev):
         raise AssertionError("march_rays_cuda accepted order=4")
     err = kernels.load().swr_march_rays_f32(
         fields.data_ptr(), x0.data_ptr(), k0.data_ptr(), x0.data_ptr(),
-        k0.data_ptr(), n_p, nx, nx, dx, dx, 0.005, 9.0, 1.0, 1, 4, 128,
+        k0.data_ptr(), None, n_p, nx, nx, dx, dx, 0.005, 9.0, 1.0, 1, 4, 128,
         torch.cuda.current_stream().cuda_stream)
     try:
         kernels.check(err, "swr_march_rays")
@@ -832,7 +937,8 @@ def march_at_main_shapes(spec, win1, win2, x, k, sub_dt):
     version, timed, and beside it what it took the place of in a flow
     step: the stacked copy of the two window arrays, the row gather, and
     the pre-gathered march on the gathered rows (same bits). Returns
-    (args, ms, max abs err, replaced, the route the timed launches took)."""
+    (args, (ms per launch in a run, ms of a single launch), max abs err,
+    replaced, the route the timed launches took)."""
     n_p = x.shape[1]
     oi, oj = mw.packet_cells(x[0], x[1], spec)
     args = (win1, win2, torch.cat([x, k], dim=0), oi, oj, sub_dt, spec)
@@ -867,9 +973,10 @@ def march_at_main_shapes(spec, win1, win2, x, k, sub_dt):
     })
     replaced["replaced_ms"] = sum(replaced.values())
     del winc, pwc
-    ms, route = route_taken(
-        lambda: cuda_ms(lambda: mw.march_gathered_cuda(*args), 25))
-    return args, ms, err, replaced, route
+    (ms, single_ms), route = route_taken(
+        lambda: (cuda_ms_run(lambda: mw.march_gathered_cuda(*args)),
+                 cuda_ms(lambda: mw.march_gathered_cuda(*args), 25)))
+    return args, (ms, single_ms), err, replaced, route
 
 
 def phase_march_routes(args):
@@ -952,8 +1059,9 @@ def phase_kernels(cfg, s, carry, steps):
     win2 = mw.transpose_cuda(W)
     x, k = carry.packet_x, carry.packet_k
     sub_dt = s.dt / cfg.n_substeps
-    args, march_ms, march_err, replaced, march_route = march_at_main_shapes(
-        spec, carry.prev_win, win2, x, k, sub_dt)
+    (args, (march_ms, march_single_ms), march_err, replaced,
+     march_route) = march_at_main_shapes(spec, carry.prev_win, win2, x, k,
+                                         sub_dt)
 
     # the parts of one flow step, each timed alone on these inputs
     breakdown = time_parts({
@@ -967,8 +1075,9 @@ def phase_kernels(cfg, s, carry, steps):
         "transpose_cuda": lambda: mw.transpose_cuda(W),
         "packet_cells": lambda: mw.packet_cells(x[0], x[1], spec),
     })
-    breakdown["march_gathered_cuda"] = march_ms
-    emit("step_breakdown", unit="ms, median, each part alone",
+    breakdown["march_gathered_cuda"] = march_single_ms
+    emit("step_breakdown", unit="ms, median, each part alone, one call "
+                                "between two events",
          sum_of_parts=sum(breakdown.values()), **breakdown,
          march_route=march_route, replaced_by_march_gathered_cuda=replaced)
     phase_march_routes(args)
@@ -993,9 +1102,10 @@ def phase_kernels(cfg, s, carry, steps):
         raise AssertionError(f"transpose differs at the main shape by "
                              f"{tr_err:.3e}")
     del t_got
-    tr_ms = cuda_ms(lambda: mw.transpose_cuda(W), 25)
-    tr_plain_ms = cuda_ms(lambda: mw.transpose_reference(W), 25)
-    tr_lib_ms = cuda_ms(lambda: W.t().contiguous(), 25)
+    tr_ms = cuda_ms_run(lambda: mw.transpose_cuda(W))
+    tr_single_ms = cuda_ms(lambda: mw.transpose_cuda(W), 25)
+    tr_plain_ms = cuda_ms_run(lambda: mw.transpose_reference(W))
+    tr_lib_ms = cuda_ms_run(lambda: W.t().contiguous())
     tr_bytes = 2 * W.numel() * item
     tr_by_bytes = tr_bytes / HBM_BYTES_PER_S * 1e3
 
@@ -1014,20 +1124,54 @@ def phase_kernels(cfg, s, carry, steps):
                       "flops": 0, "ms_by_bytes": tr_by_bytes,
                       "ms_by_operations": 0.0, "tolerance": "exact"}}
     # Per kernel: bound_ms from this run's inputs, every other number
-    # measured in this run; main() adds the launches.
+    # measured in this run; main() adds the launches. `ms` (and plain_ms,
+    # library_ms of the short kernels) is per call inside a run of calls
+    # queued back to back (cuda_ms_run); `single_launch_ms` is one call
+    # between two events, host included.
     rows = [
         {"name": "march", "route": "cuda", "source": SOURCES["march"],
          "replaces": REPLACES["march"], "max_abs_err": march_err, "ms": march_ms,
          "plain_ms": march_plain_ms, "bound_ms": max(by_bytes, by_ops),
          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-         "library_ms": None, "march_route": march_route,
+         "library_ms": None, "single_launch_ms": march_single_ms,
+         "march_route": march_route,
          "replaced_ms": replaced["replaced_ms"], "replaced": replaced},
         {"name": "transpose", "route": "cuda", "source": SOURCES["transpose"],
          "replaces": REPLACES["transpose"], "max_abs_err": tr_err,
          "ms": tr_ms, "plain_ms": tr_plain_ms, "bound_ms": tr_by_bytes,
-         "bound_by": "bytes", "library_ms": tr_lib_ms},
+         "bound_by": "bytes", "library_ms": tr_lib_ms,
+         "single_launch_ms": tr_single_ms},
     ]
     return rows, bounds
+
+
+def build_windows_other_shapes(nx, dev):
+    """K3 alone at the other window sizes and in float64 on random fields of
+    the main grid, beside its bytes bound and a memset of the same output:
+    whether the kernel keeps its rate per byte written whatever K is."""
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(5)
+    report = {}
+    for dtype, nf, margin in ((torch.float32, 2, 2), (torch.float32, 2, 3),
+                              (torch.float32, 6, 1), (torch.float64, 2, 1),
+                              (torch.float64, 6, 1)):
+        spec = mw.MarchSpec(nx=nx, ny=nx, dx=1.0, dy=1.0, f=3.0, Cg=1.0,
+                            nf=nf, grad_from_interp=nf == 2, margin=margin,
+                            tiles_transposed=True, fused_build=True)
+        F = torch.randn((nf, nx, nx), dtype=dtype, device=dev, generator=g)
+        out = mw.build_windows_cuda(F, spec)
+        if not torch.equal(out, mw.build_windows_reference(F, spec)):
+            raise AssertionError(f"build_windows differs at K={spec.K} {dtype}")
+        launch = lambda: lib.swr_build_windows(
+            mw._DTYPE_CODE[dtype], F.data_ptr(), out.data_ptr(), nf, nx, nx,
+            spec.SW, spec.order + margin, stream)
+        nbytes = (out.numel() + F.numel()) * out.element_size()
+        report[f"{dtype} nf={nf} m={margin} K={spec.K}"] = {
+            "kernel_ms": cuda_ms_run(launch, 50),
+            "memset_ms": cuda_ms_run(out.zero_),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        del out, F
+    return report
 
 
 def phase_kernels_qg1(cfg, s, carry):
@@ -1056,7 +1200,7 @@ def phase_kernels_qg1(cfg, s, carry):
         raise AssertionError("build_windows differs from the two-pass route "
                              "at the main shape")
     x, k = carry.packet_x, carry.packet_k
-    _, march_ms, _, replaced, march_route = march_at_main_shapes(
+    _, (_, march_ms), _, replaced, march_route = march_at_main_shapes(
         spec, carry.prev_win, got, x, k, s.dt / cfg.n_substeps)
     breakdown = time_parts({
         "qg_step": lambda: qg.qg_step(carry.flow_state, s.grid, qp),
@@ -1071,31 +1215,60 @@ def phase_kernels_qg1(cfg, s, carry):
                                                                 spec),
         "transpose_cuda": lambda: mw.transpose_cuda(W),
     })
-    emit("step_breakdown_qg1", unit="ms, median, each part alone",
+    emit("step_breakdown_qg1", unit="ms, median, each part alone, one call "
+                                    "between two events",
          sum_of_parts=sum(breakdown.values()), **breakdown,
          march_route=march_route, replaced_by_march_gathered_cuda=replaced,
          two_pass_route_on_the_same_fields=two_pass)
     del W
 
-    bw_ms = cuda_ms(lambda: mw.build_windows_cuda(fields2, spec), 25)
-    bw_plain_ms = cuda_ms(lambda: mw.build_windows_reference(fields2, spec),
-                          10)
+    bw_ms = cuda_ms_run(lambda: mw.build_windows_cuda(fields2, spec))
+    bw_single_ms = cuda_ms(lambda: mw.build_windows_cuda(fields2, spec), 25)
+    # the kernel alone: the C entry the wrapper calls, into one output
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    lo = spec.order + spec.margin
+    launch = lambda: lib.swr_build_windows(
+        mw._DTYPE_CODE[dtype], fields2.data_ptr(), got.data_ptr(), spec.nf,
+        cfg.nx, cfg.nx,
+        spec.SW, lo, stream)
+    got.zero_()
+    kernels.check(launch(), "swr_build_windows")
+    if not torch.equal(got, mw.build_windows_cuda(fields2, spec)):
+        raise AssertionError("the C entry's output differs from the wrapper's")
+    bw_kernel_ms = cuda_ms_run(launch, 50)
+    # the same wrapper on an 8 x 12 grid, one call between two events: how
+    # much of a single-launch time is the host's
+    tiny = spec._replace(nx=8, ny=12)
+    tiny_F = fields2[:, :8, :12].contiguous()
+    bw_floor_ms = cuda_ms(lambda: mw.build_windows_cuda(tiny_F, tiny), 25)
+    # writing the same bytes with nothing to read
+    bw_memset_ms = cuda_ms_run(got.zero_)
+    bw_plain_ms = cuda_ms_run(
+        lambda: mw.build_windows_reference(fields2, spec), 10)
     # the one library copy that does the same: the padded fields' shifted
     # views, permuted to rows, made contiguous
     shifted = mw._shifted_views(fields2, spec)
-    bw_lib_ms = cuda_ms(
+    bw_lib_ms = cuda_ms_run(
         lambda: shifted.permute(3, 4, 0, 1, 2).contiguous(), 10)
+    out_shape = tuple(got.shape)
     bw_bytes = (got.numel() + spec.nf * cfg.nx * cfg.nx) * item
     by_bytes = bw_bytes / HBM_BYTES_PER_S * 1e3
+    del shifted, got
+    emit("build_windows_shapes", unit="ms per launch of the C entry in a run "
+                                      "of 50, and a memset of its output",
+         nx=cfg.nx, **build_windows_other_shapes(cfg.nx, fields2.device))
     bounds = {"build_windows": {
-        "shape": f"F {tuple(fields2.shape)} -> {tuple(got.shape)} {dtype}",
+        "shape": f"F {tuple(fields2.shape)} -> {out_shape} {dtype}",
         "bytes": bw_bytes, "flops": 0, "ms_by_bytes": by_bytes,
         "ms_by_operations": 0.0, "tolerance": "exact"}}
     row = {"name": "build_windows", "route": "cuda",
            "source": SOURCES["build_windows"],
            "replaces": REPLACES["build_windows"], "max_abs_err": bw_err,
            "ms": bw_ms, "plain_ms": bw_plain_ms, "bound_ms": by_bytes,
-           "bound_by": "bytes", "library_ms": bw_lib_ms}
+           "bound_by": "bytes", "library_ms": bw_lib_ms,
+           "kernel_ms": bw_kernel_ms, "memset_ms": bw_memset_ms,
+           "single_launch_ms": bw_single_ms,
+           "single_launch_ms_on_an_8x12_grid": bw_floor_ms}
     return [row], bounds
 
 
@@ -1109,9 +1282,87 @@ FROZEN = dict(nx=512, n_packets=1_048_576, dt=1e-3, Kd2=3.0,
               drift_packets=2 ** 16, drift_steps=500)
 
 
+def sm_count_and_clock():
+    """The card's SM count and its highest SM clock in Hz, as the device
+    reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    mhz = float(out.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count, mhz * 1e6
+
+
+# Segment lengths of the sweep in steps (RAYS_STEPS: one segment, the
+# packets ordered once).
+SEGMENT_SWEEP = (RAYS_STEPS, 25, 13, 10, 7, 5, 3)
+
+
+def phase_march_rays_segments(args, grid, disp, dt):
+    """K4 at the main shape over segment lengths, ordered, beside the
+    unordered march (one launch, and the same launches without ordering):
+    what SEGMENT_CELLS in ops/march_rays.py is read from. Every variant
+    gives the same bits. Then one ordering alone, the node-major copy
+    alone, torch.sort on the same keys, and float64 at full width."""
+    fields, x0, k0 = args[:3]
+    single = unordered_march(*args)
+    cells_per_step = disp.Cg * dt / min(grid.dx, grid.dy)
+    rule = mr.segment_steps(dt, grid, disp)
+    sweep = {}
+    for segment in sorted({*SEGMENT_SWEEP, rule}, reverse=True):
+        run = lambda: mr.march_rays_cuda_by(*args, segment=segment)
+        require_same_bits(run(), single, f"segment={segment}")
+        sweep[str(segment)] = {
+            "launches": len(mr.march_rays_cuda.last_segments),
+            "cells_at_group_speed_bound": segment * cells_per_step,
+            "ms": cuda_ms_run(run, 3)}
+    unordered = {
+        "one launch": cuda_ms_run(lambda: unordered_march(*args), 2, 3),
+        f"segments of {rule}": cuda_ms_run(
+            lambda: mr.march_rays_cuda_by(*args, segment=rule,
+                                          ordered=False), 2, 3)}
+    best = min(sweep, key=lambda key: sweep[key]["ms"])
+    keys = mr.packet_cell_keys(x0, grid)
+    parts = {name: cuda_ms_run(fn) for name, fn in {
+        "cell_order_cuda": lambda: mr.cell_order_cuda(x0, grid),
+        "cell_order_reference (remainder, floor, argsort)":
+            lambda: mr.cell_order_reference(x0, grid),
+        "torch.sort of the keys alone": lambda: torch.sort(keys),
+        "node_major_copy": lambda: mr.node_major_fields(fields),
+    }.items()}
+    del keys
+
+    f64 = torch.float64
+    args64 = (fields.to(f64), x0.to(f64), k0.to(f64), *args[3:])
+    got64 = mr.march_rays_cuda(*args64)
+    segments64 = list(mr.march_rays_cuda.last_segments)
+    single64 = unordered_march(*args64)
+    require_same_bits(got64, single64, "float64 at full width")
+    # the float32 march against the float64 one: what float32 costs
+    err32 = max(float((a.to(f64) - b).abs().max())
+                for a, b in zip(single, got64))
+    del got64, single64, single
+    float64 = {
+        "ms": cuda_ms_run(lambda: mr.march_rays_cuda(*args64), 3),
+        "unordered_one_launch_ms": cuda_ms_run(
+            lambda: unordered_march(*args64), 2, 3),
+        "segments": segments64, "equals_unordered_bit_for_bit": True,
+        "max_abs_diff_of_float32_march": err32}
+    emit("march_rays_segments",
+         unit="ms per call in a run of calls queued back to back",
+         n_packets=x0.shape[1], nx=grid.nx, steps=RAYS_STEPS, dt=dt,
+         cells_per_step_at_group_speed_bound=cells_per_step,
+         SEGMENT_CELLS=mr.SEGMENT_CELLS, segment_by_the_rule=rule,
+         ordered_by_segment_length=sweep, fastest_segment=int(best),
+         unordered=unordered, all_equal_bit_for_bit=True,
+         parts_alone_ms=parts, float64_full_width=float64)
+    return sweep, parts
+
+
 def phase_frozen_path(dev):
     """2^20 packets, 50 symplectic steps through a frozen 512^2 one-layer
-    snapshot: march_rays (one launch of K4) against its plain version and
+    snapshot: march_rays (K4, ordered by cell, one launch a segment)
+    against its plain version, the unordered single launch and
     raytrace_frozen on the card, then the frequency drift in float64."""
     nx, n_p, dt, Kd2 = (FROZEN[key] for key in ("nx", "n_packets", "dt",
                                                 "Kd2"))
@@ -1123,6 +1374,10 @@ def phase_frozen_path(dev):
     fields = flow.fields.contiguous()
     x0, k0 = ring_ics(n_p, 2.0, disp, dtype=dtype)
     args = (fields, x0, k0, grid, disp, dt, RAYS_STEPS)
+    segments = mr.split_steps(RAYS_STEPS, mr.segment_steps(dt, grid, disp))
+    # the ordering's kernels at the shape the path gives them (262144 cells,
+    # 2^20 packets): the keys in order, every packet once
+    check_cell_order(x0, grid, "frozen_path cell_order at the start")
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1134,16 +1389,21 @@ def phase_frozen_path(dev):
     torch.cuda.synchronize()
     first_ms = start.elapsed_time(end)
     launches = read_launches()
+    # one launch of the march and one ordering per segment, nothing else
     expected = dict.fromkeys(WRAPPERS, 0)
-    expected["march_rays"] = 1
-    if launches != expected:
+    expected["march_rays"] = expected["cell_order"] = len(segments)
+    if launches != expected or mr.march_rays_cuda.last_segments != segments:
         raise AssertionError(f"frozen_path: launch counts {launches}, "
-                             f"expected {expected}")
+                             f"expected {expected}; segments "
+                             f"{mr.march_rays_cuda.last_segments}, expected "
+                             f"{segments}")
     if xN.shape != (2, n_p) or kN.shape != (2, n_p) or not xN.is_cuda:
         raise AssertionError("frozen_path: unexpected result")
 
     want = mr.march_rays_reference(*args)
     err = compare_rays((xN, kN), want, RAYS_F32_ATOL, "frozen_path")
+    require_same_bits((xN, kN), unordered_march(*args),
+                      "frozen_path ordered vs unordered")
     res = raytrace_frozen(flow, x0, k0, disp, dt, RAYS_STEPS,
                           save_every=RAYS_STEPS, stepper="symplectic")
     err_frozen = compare_rays((xN, kN), (res.x[-1], res.k[-1]),
@@ -1151,12 +1411,23 @@ def phase_frozen_path(dev):
     moved = float((xN - x0).abs().max())
     if not moved > 1e-2:
         raise AssertionError(f"frozen_path: packets did not move ({moved})")
+    # and on the marched positions, which have left [0, L) here and there
+    check_cell_order(xN, grid, "frozen_path cell_order after the march")
     drift32 = float(res.conservation_error[-1])
     del want, res
 
-    ms = cuda_ms(lambda: mr.march_rays_cuda(*args), 10)
+    # the entry the path launches, and in turns with it the unordered
+    # single launch of the same kernel that it took the place of
+    unordered_ms = [cuda_ms_run(lambda: unordered_march(*args), 2, 3)]
+    ms = cuda_ms_run(lambda: mr.march_rays_cuda(*args), 5)
+    single_ms = cuda_ms(lambda: mr.march_rays_cuda(*args), 10)
+    unordered_ms.append(cuda_ms_run(lambda: unordered_march(*args), 2, 3))
+    replaced_ms = statistics.median(unordered_ms)
     plain_ms = cuda_ms(lambda: mr.march_rays_reference(*args), 2)
     peak = torch.cuda.max_memory_allocated()
+    sweep, parts = phase_march_rays_segments(args, grid, disp, dt)
+    ordering_ms = (len(segments) * parts["cell_order_cuda"]
+                   + parts["node_major_copy"])
 
     # float64 at fewer packets, 500 steps: the absolute frequency
     # omega + U.k is the invariant of a steady flow
@@ -1176,11 +1447,28 @@ def phase_frozen_path(dev):
     nbytes = (2 * 4 * n_p + fields.numel()) * item
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / FLOPS_PER_S[dtype] * 1e3
+    # what any design pays in which each packet reads its own 36 x 6 values
+    # from L1 or shared memory: 128 bytes a cycle an SM
     cache_bytes = 36 * 6 * item * n_p * RAYS_STEPS
+    sms, clock_hz = sm_count_and_clock()
+    by_cache = cache_bytes / (128.0 * sms * clock_hz) * 1e3
+    # cycles of an SM per warp-wide load instruction: the march's time
+    # over 72 16-byte loads a packet-step, 32 packets a warp
+    warp_loads = n_p * RAYS_STEPS * 72 / 32
+    cycles_per_warp_load = {
+        name: t * 1e-3 * clock_hz * sms / warp_loads
+        for name, t in (("ordered", ms - ordering_ms),
+                        ("unordered", replaced_ms
+                         - parts["node_major_copy"]))}
     emit("frozen_path", nx=nx, n_packets=n_p, dtype="float32", dt=dt,
-         steps=RAYS_STEPS, order=2, launches=launches,
-         first_launch_ms=first_ms, ms=ms,
+         steps=RAYS_STEPS, order=2, launches=launches, segments=segments,
+         first_launch_ms=first_ms, ms=ms, single_launch_ms=single_ms,
+         replaced_ms=replaced_ms,
+         unordered_single_launch_ms_before_and_after=unordered_ms,
+         ordering_ms=ordering_ms,
+         equals_unordered_single_launch_bit_for_bit=True,
          packet_steps_per_s=n_p * RAYS_STEPS / (ms / 1e3),
+         cycles_per_warp_load=cycles_per_warp_load,
          max_abs_err_vs_plain=err, max_abs_err_vs_raytrace_frozen=err_frozen,
          atol=RAYS_F32_ATOL, max_packet_displacement=moved,
          frequency_drift_float32_50_steps=drift32,
@@ -1192,13 +1480,17 @@ def phase_frozen_path(dev):
         "bytes": nbytes, "flops": flops, "ms_by_bytes": by_bytes,
         "ms_by_operations": by_ops,
         "stencil_reads_through_cache_bytes": cache_bytes,
+        "ms_by_cache": by_cache, "sm_count": sms, "sm_clock_hz": clock_hz,
+        "cache_bytes_per_cycle_per_sm": 128,
         "tolerance": {"rtol": 0.0, "atol": RAYS_F32_ATOL}}}
     row = {"name": "march_rays", "route": "cuda",
            "source": SOURCES["march_rays"],
            "replaces": REPLACES["march_rays"], "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-           "library_ms": None}
+           "library_ms": None, "single_launch_ms": single_ms,
+           "replaced_ms": replaced_ms, "ordering_ms": ordering_ms,
+           "segments": segments, "orderings": launches["cell_order"]}
     return [row], bounds, launches
 
 

@@ -30,6 +30,8 @@ Kernels (C entry -> wrapper):
                                 ops.march_window.build_windows_cuda
   swr_march_rays_f32, _f64      csrc/march_rays.cu
                                 ops.march_rays.march_rays_cuda
+  swr_rays_cell_histogram,      csrc/march_rays.cu: the packets' order by
+  swr_rays_cell_scatter         cell (a counting sort), for the same wrapper
 csrc/scalar.cuh holds the scalar helpers the two march kernels share.
 """
 
@@ -139,11 +141,19 @@ def _bind(lib: ctypes.CDLL) -> None:
         rays.argtypes = [
             vp, vp, vp,          # fields, x0, k0
             vp, vp,              # xN, kN
+            vp,                  # permutation by cell, or null
             i64, i32, i32,       # Np, nx, ny
             f64, f64, f64,       # dx, dy, dt
             f64, f64,            # f^2, Cg^2
             i32, i32, i32,       # nsteps, order, threads per block
             vp]                  # stream
+    lib.swr_rays_cell_histogram.restype = i32
+    lib.swr_rays_cell_histogram.argtypes = [
+        i32, vp, i64,            # dtype, x, Np
+        i32, i32, f64, f64,      # nx, ny, dx, dy
+        vp, vp, vp]              # key, count, stream
+    lib.swr_rays_cell_scatter.restype = i32
+    lib.swr_rays_cell_scatter.argtypes = [vp, i64, vp, vp, vp]
     lib.swr_error_string.restype = ctypes.c_char_p
     lib.swr_error_string.argtypes = [i32]
 
