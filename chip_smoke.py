@@ -7,9 +7,9 @@ checkout (march, transpose, build_windows, march_rays), holds each against
 its plain PyTorch version on the card (the march through both of its
 entries: rows read by cell from the window arrays, and pre-gathered rows),
 runs every path once on the card and
-once on the CPU at a small size and compares them, then drives the three
-main paths at full width, each with the launch counts set to 0 just before
-it and read just after:
+once on the CPU at a small size and compares them (the per-stage packet path
+too), then drives the main paths at full width, each with the launch counts
+set to 0 just before it and read just after:
 
   main_path      the two-layer coupled model at 512^2 with 2^20 wave
                  packets, rk23 with 2 substeps, uv windows, (ncells, K)
@@ -21,7 +21,19 @@ it and read just after:
                  512^2 one-layer snapshot, ordered by cell, one launch per
                  segment of steps (march_rays); then a sweep of the segment
                  length, which the constant in the splitting rule is read
-                 from, and the float64 time at full width.
+                 from, and the float64 time at full width;
+  driver_cli     `python -m swraytracing_torch qg2` at 512^2 with 2^20
+                 packets, 100 flow steps, in a subprocess: its frames,
+                 run.log and metrics;
+  driver_path    the two-layer production driver in diagnostic mode (omega
+                 histograms on the card), 150 flow steps with a checkpoint
+                 every 2 chunks (march + transpose once a flow step); then
+                 100 steps resumed from their checkpoint to 150, against the
+                 uninterrupted run;
+  driver_reference_config
+                 the reference's own configuration (256^2, 50 packets) on
+                 the per-stage path, which launches no kernel of the port,
+                 and 20 steps of the windowed per-stage path at full width.
 
 Each phase prints one JSON line. Any failed phase raises, so the exit code
 is non-zero; without a CUDA device the script fails at once and runs
@@ -43,30 +55,42 @@ holds what each bound was computed from (bytes, operations, shapes) and
 the tolerances the errors were held to. The script takes no arguments.
 """
 
+import contextlib
+import dataclasses
+import io
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from swraytracing_torch import kernels
-from swraytracing_torch.models import qg, qg2
+from swraytracing_torch import drivers, kernels
+from swraytracing_torch.analysis.device_diag import (OmegaHistSpec,
+                                                     omega_hist_counts)
+from swraytracing_torch.io import binio, runmeta
+from swraytracing_torch.models import qg, qg2, rays
 from swraytracing_torch.models.coupled import (CoupledConfig,
+                                               coupled_flow_packet_step,
+                                               prepare_carry_windows,
                                                run_coupled_chunk,
-                                               setup_coupled)
+                                               setup_coupled,
+                                               window_threshold)
 from swraytracing_torch.models.coupled2 import (Coupled2Config,
                                                 run_coupled2_chunk,
                                                 setup_coupled2)
 from swraytracing_torch.models.dispersion import Dispersion
-from swraytracing_torch.models.fields import (GriddedFlow, flow_from_psi_grid,
-                                              flow_from_qk)
+from swraytracing_torch.models.fields import (BlendedFlow, GriddedFlow,
+                                              flow_from_psi_grid, flow_from_qk)
 from swraytracing_torch.models.frozen import raytrace_frozen, ring_ics
 from swraytracing_torch.ops import march_rays as mr
 from swraytracing_torch.ops import march_window as mw
+from swraytracing_torch.ops import spectral as sp
 from swraytracing_torch.ops.grid import SpectralGrid
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
@@ -698,17 +722,19 @@ def phase_kernels_vs_plain(dev):
 # every path, card against CPU
 # ---------------------------------------------------------------------------
 
-def coupled_card_vs_cpu(dev, cfg, setup, run_chunk):
+def coupled_card_vs_cpu(dev, cfg, setup, run_chunk, march=True):
     """Two chunks of 5 flow steps of a coupled model in float64 on the card
-    and on the CPU, compared."""
+    and on the CPU, compared. march: whether the fused march is engaged (the
+    per-stage path when not)."""
     out = {}
     for name, device in (("cuda", dev), ("cpu", "cpu")):
         s, carry = setup(cfg, device=device, dtype=torch.float64)
         carry, (px, pk, ts) = run_chunk(carry, s, cfg, 2)
         out[name] = (s, carry, px.cpu(), pk.cpu(), ts)
     (sg, cg, pxg, pkg, tsg), (sc, cc, pxc, pkc, tsc) = out["cuda"], out["cpu"]
-    if sg.march != sc.march or sg.march is None:
-        raise AssertionError("march specs differ between card and CPU")
+    if sg.march != sc.march or (sg.march is not None) != march:
+        raise AssertionError("march specs differ between card and CPU, or "
+                             "the march is (not) engaged")
     # cuFFT and the CPU FFT differ in the last bits; 10 steps keep that
     # far below these tolerances
     torch.testing.assert_close(pxg, pxc, rtol=0, atol=1e-9)
@@ -716,15 +742,20 @@ def coupled_card_vs_cpu(dev, cfg, setup, run_chunk):
     qg_, qc_ = cg.flow_state.qk.cpu(), cc.flow_state.qk
     if not float((qg_ - qc_).abs().max()) <= 1e-9 * float(qc_.abs().max()):
         raise AssertionError("qk differs between card and CPU")
-    if int(cg.overflow) != int(cc.overflow):
-        raise AssertionError("overflow differs between card and CPU")
     if not float((pxc[-1] - pxc[0]).abs().max()) > 0:
         raise AssertionError("packets did not move in path_vs_cpu")
-    return dict(nx=cfg.nx, n_packets=cfg.n_packets, flow_steps=10,
-                max_abs_dx=float((pxg - pxc).abs().max()),
-                max_abs_dk=float((pkg - pkc).abs().max()),
-                max_rel_dqk=float((qg_ - qc_).abs().max() / qc_.abs().max()),
-                overflow=int(cg.overflow), margin=sg.march.margin,
+    result = dict(nx=cfg.nx, n_packets=cfg.n_packets, flow_steps=10,
+                  max_abs_dx=float((pxg - pxc).abs().max()),
+                  max_abs_dk=float((pkg - pkc).abs().max()),
+                  max_rel_dqk=float((qg_ - qc_).abs().max()
+                                    / qc_.abs().max()))
+    if not march:
+        if cg.overflow is not None or cc.overflow is not None:
+            raise AssertionError("the per-stage path carries an overflow")
+        return dict(result, windowed=cg.prev_win is not None)
+    if int(cg.overflow) != int(cc.overflow):
+        raise AssertionError("overflow differs between card and CPU")
+    return dict(result, overflow=int(cg.overflow), margin=sg.march.margin,
                 fused_build=sg.march.fused_build)
 
 
@@ -761,7 +792,22 @@ def phase_path_vs_cpu(dev):
     if mw.build_windows_cuda.launches != before + 11:
         raise AssertionError("the one-layer path did not build its windows "
                              "with the build kernel")
-    emit("path_vs_cpu", **two, one_layer=one, march_rays=rays_card_vs_cpu(dev))
+    # the per-stage path (no march): stencil below window_min_np, and from
+    # prebuilt windows with the march off and the threshold lowered; it
+    # launches no kernel of the port
+    per_stage = {}
+    for branch, kw in (("stencil", dict(small, window_min_np=65536)),
+                       ("windowed", dict(small, fused_march=False))):
+        before = read_launches()
+        per_stage[branch] = coupled_card_vs_cpu(
+            dev, Coupled2Config(**kw), setup_coupled2, run_coupled2_chunk,
+            march=False)
+        if per_stage[branch]["windowed"] != (branch == "windowed"):
+            raise AssertionError(f"per-stage {branch}: wrong branch taken")
+        if read_launches() != before:
+            raise AssertionError(f"per-stage {branch} launched a kernel")
+    emit("path_vs_cpu", **two, one_layer=one, march_rays=rays_card_vs_cpu(dev),
+         per_stage=per_stage)
 
 
 # ---------------------------------------------------------------------------
@@ -869,7 +915,10 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
          omega_over_f_end=[float(om1.mean()), float(om1.std())],
          max_speed=speed, t_end=carry.flow_state.t,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
-    return (cfg, s, carry), launches, routes, all_steps
+    summary = dict(packet_steps_per_s=steps * cfg.n_packets / seconds,
+                   ms_per_flow_step=1e3 * seconds / steps,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return (cfg, s, carry), launches, routes, all_steps, summary
 
 
 def phase_main_path(n_chunks):
@@ -1494,6 +1543,311 @@ def phase_frozen_path(dev):
     return [row], bounds, launches
 
 
+# ---------------------------------------------------------------------------
+# the production drivers (swraytracing_torch.drivers and its CLI)
+# ---------------------------------------------------------------------------
+
+# The two-layer driver at full width, as `python -m swraytracing_torch qg2`
+# runs it: chunks of packet_steps_per_save = 25 flow steps (the two-layer
+# defaults steps_per_save = 10, packet_steps_per_save = 25).
+DRIVER = dict(nx=512, Npackets=1_048_576, packet_delay_days=0.01)
+
+
+def frames_finite(path, n, nx, ny=1, nz=1):
+    """Check that a .bin file holds exactly `n` frames of nx*ny*nz values,
+    every one finite."""
+    if binio.frame_count(path, nx, ny, nz) != n:
+        raise AssertionError(f"{path}: {binio.frame_count(path, nx, ny, nz)}"
+                             f" frames, expected {n}")
+    data = np.fromfile(path + ".bin")
+    if data.size != n * nx * ny * nz or not np.isfinite(data).all():
+        raise AssertionError(f"{path}: not {n} finite frames")
+
+
+def median_rate(metrics):
+    return statistics.median(m["packet_steps_per_sec"] for m in metrics)
+
+
+def phase_driver_cli(tmp):
+    """`python -m swraytracing_torch qg2` at 512^2 with 2^20 packets, 100
+    flow steps (4 chunks of 25), in a subprocess that loads the kernels
+    this script built."""
+    out = tmp / "cli"
+    n_p = DRIVER["Npackets"]
+    cmd = [sys.executable, "-m", "swraytracing_torch", "qg2", "--nx", "512",
+           "--packets", str(n_p), "--delay-days", "0.01", "--max-steps",
+           "100", "--out", str(out)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the CLI exited with {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    for name in ("packet_x", "packet_k"):
+        frames_finite(str(out / name), 5, n_p, 2)
+    frames_finite(str(out / "packet_time"), 5, 1)
+    frames_finite(str(out / "pv"), 5, 512, 512, 2)
+    frames_finite(str(out / "pv_time"), 5, 1)
+    log = runmeta.parse_run_log(out / "run.log")
+    if (log["nx"], log["n_packets"]) != (512, n_p) or \
+            "wall_seconds" not in log:
+        raise AssertionError(f"run.log does not parse: {log}")
+    metrics = runmeta.RunDir(out).read_metrics()
+    if len(metrics) != 4 or any("march_overflow" in m or "blow_up" in m
+                                for m in metrics):
+        raise AssertionError(f"metrics.jsonl: {metrics}")
+    emit("driver_cli", command=" ".join(cmd[1:]), wall_seconds=wall,
+         bytes_written=sum(f.stat().st_size for f in out.iterdir()),
+         packet_frames=5, pv_frames=5, chunks=len(metrics),
+         packet_steps_per_sec_chunks_2_to_4=median_rate(metrics[1:]),
+         packet_steps_per_sec_by_chunk=[m["packet_steps_per_sec"]
+                                        for m in metrics],
+         run_log_wall_seconds=log["wall_seconds"])
+
+
+def run_driver(out, max_steps, resume=False):
+    """qg2layersw_raytrace in diagnostic mode (log-binned omega histograms
+    on the card), its printed log captured. Returns (carry, RunDir, log,
+    wall seconds)."""
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        carry, rd = drivers.qg2layersw_raytrace(
+            out_dir=out, max_steps=max_steps, checkpoint_every=2,
+            omega_hist_bins=300, omega_hist_log=True, resume=resume,
+            **DRIVER)
+    torch.cuda.synchronize()
+    return carry, rd, text.getvalue(), time.perf_counter() - t0
+
+
+def phase_driver_path(tmp, main):
+    """The two-layer driver in diagnostic mode, 150 flow steps (6 chunks)
+    with a checkpoint every 2 chunks, launch counts set to 0 just before:
+    K1 once per flow step (staged), K2 once per flow step plus the first
+    carry's windows plus one per window rebuild after a CFL recheck. Then
+    100 steps, resumed from their checkpoint to 150, against the
+    uninterrupted run."""
+    n_p = DRIVER["Npackets"]
+    steps = 150
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    carry, rd, text, wall = run_driver(tmp / "path", steps)
+    launches = read_launches()
+    routes = dict(mw.march_gathered_cuda.launches_by_route)
+    gathers = mw.gather_packet_windows.calls
+    peak = torch.cuda.max_memory_allocated()
+    rechecks = text.count("CFL recheck")
+    metrics = rd.read_metrics()
+    if len(metrics) != 6 or any("march_overflow" in m or "blow_up" in m
+                                for m in metrics):
+        raise AssertionError(f"driver_path metrics: {metrics}")
+    if launches["march"] != steps or routes != {"staged": steps, "direct": 0}:
+        raise AssertionError(f"driver_path: march launches {launches}, "
+                             f"routes {routes}, expected {steps} staged")
+    if gathers != 0:
+        raise AssertionError(f"driver_path: gather_packet_windows was "
+                             f"called {gathers} times")
+    rebuilds = launches["transpose"] - steps - 1
+    if not 0 <= rebuilds <= rechecks:
+        raise AssertionError(f"driver_path: {launches['transpose']} "
+                             f"transposes for {steps} steps and {rechecks} "
+                             "CFL rechecks")
+    others = {k: v for k, v in launches.items()
+              if k not in ("march", "transpose") and v}
+    if others:
+        raise AssertionError(f"driver_path launched {others}")
+    if carry.overflow is None or int(carry.overflow) != 0:
+        raise AssertionError("driver_path: overflow")
+    hist = np.fromfile(str(tmp / "path" / "omega_hist.bin")).reshape(-1, 301)
+    if hist.shape[0] != 7 or not (hist.sum(axis=1) == n_p).all():
+        raise AssertionError(f"omega_hist: {hist.shape[0]} frames, sums "
+                             f"{hist.sum(axis=1)}")
+    if not torch.isfinite(carry.packet_x).all():
+        raise AssertionError("driver_path: packets are not finite")
+    rate = median_rate(metrics[1:])
+    ratio = rate / main["packet_steps_per_s"]
+    # what a driver's chunk does beyond the main path's, each timed alone
+    # on the final carry (one call between two events: host included)
+    spec = OmegaHistSpec(n_bins=300, omega_max=64.0 * 2.0 * 3.0, f=3.0,
+                         Cg=1.0, omega_min=3.0, log_bins=True)
+    grid = SpectralGrid.square(512, 20.0)
+    extras = {
+        "omega_hist_counts": cuda_ms(
+            lambda: omega_hist_counts(carry.packet_k, spec), 9),
+        "pv_grid_to_host": cuda_ms(
+            lambda: sp.to_grid(carry.flow_state.qk, grid).cpu(), 9),
+        "isfinite_read": cuda_ms(
+            lambda: bool(torch.isfinite(carry.flow_state.qk).all()), 9),
+        "overflow_read": cuda_ms(lambda: int(carry.overflow), 9),
+    }
+    chunk_seconds = sum(m["wall_s"] for m in metrics)
+    # the driver's chunk loop alone: the same chunks of 25 steps with their
+    # histograms and per-chunk reads, timed by the host clock as the driver
+    # times them, but no frame written and no checkpoint taken
+    cfg = Coupled2Config(nx=512, n_packets=n_p, packet_delay_days=0.01)
+    s, c = setup_coupled2(cfg)
+    alone = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        c, _ = run_coupled2_chunk(
+            c, s, cfg, 1, diag_fn=lambda cc: omega_hist_counts(cc.packet_k,
+                                                               spec))
+        if not bool(torch.isfinite(c.flow_state.qk).all()) or \
+                int(c.overflow) != 0:
+            raise AssertionError("the chunk loop alone failed")
+        alone.append(cfg.packet_steps_per_save * n_p
+                     / (time.perf_counter() - t0))
+        c = dataclasses.replace(c, overflow=torch.zeros_like(c.overflow))
+    del s, c
+    alone_rate = statistics.median(alone[1:])
+    where = None
+    if ratio < 0.8:
+        where = (f"chunks 2-6 run at {ratio:.3f} of main_path's rate. The "
+                 "same chunk loop without frames or checkpoints runs at "
+                 f"{alone_rate / main['packet_steps_per_s']:.3f} of it: the "
+                 "rest is the frame-writer thread and the checkpoints "
+                 "taking the host from the launching thread. The chunk's "
+                 f"own extras, each alone (ms): {extras}; "
+                 f"{wall - chunk_seconds:.3f} s of the {wall:.3f} s run lie "
+                 "between chunks (setup, frames, checkpoints, rechecks)")
+
+    # resume: 100 steps, then resumed from their checkpoint to 150
+    _, _, _, wall100 = run_driver(tmp / "resume", 100)
+    resumed, _, rtext, wall_resume = run_driver(tmp / "resume", steps,
+                                                resume=True)
+    if "resumed from" not in rtext:
+        raise AssertionError("the second run did not resume")
+    hist_r = np.fromfile(str(tmp / "resume" / "omega_hist.bin"))
+    if not np.array_equal(hist_r.reshape(-1, 301), hist):
+        raise AssertionError("resumed omega_hist frames differ from the "
+                             "uninterrupted run's")
+    dx = float((resumed.packet_x - carry.packet_x).abs().max())
+    dk = float((resumed.packet_k - carry.packet_k).abs().max())
+    if not max(dx, dk) <= 1e-6:
+        raise AssertionError(f"resumed packets differ by {max(dx, dk)}")
+    emit("driver_path", nx=512, n_packets=n_p, flow_steps=steps,
+         chunks=len(metrics), wall_seconds=wall, chunk_seconds=chunk_seconds,
+         launches=launches, march_launches_by_route=routes,
+         transpose_launches=launches["transpose"],
+         transpose_per_flow_step=steps, transpose_first_carry=1,
+         transpose_rebuilds_after_cfl_recheck=rebuilds,
+         cfl_rechecks=rechecks, gather_packet_windows_calls=gathers,
+         overflow=int(carry.overflow), omega_hist_frames=int(hist.shape[0]),
+         omega_hist_overflow_slot=float(hist[:, -1].sum()),
+         packet_steps_per_sec_chunks_2_to_6=rate,
+         packet_steps_per_sec_by_chunk=[m["packet_steps_per_sec"]
+                                        for m in metrics],
+         main_path_packet_steps_per_s=main["packet_steps_per_s"],
+         ratio_to_main_path=ratio,
+         chunk_loop_alone_packet_steps_per_sec_chunks_2_to_6=alone_rate,
+         chunk_loop_alone_by_chunk=alone, below_80_percent=where,
+         chunk_extras_ms=extras, peak_memory_bytes=peak,
+         resume={"wall_seconds_100_steps": wall100,
+                 "wall_seconds_resumed_to_150": wall_resume,
+                 "omega_hist_equal": True,
+                 "omega_hist_frames_after_checkpoint": [6, 7],
+                 "max_abs_dx": dx, "max_abs_dk": dk,
+                 "bit_equal": dx == 0.0 and dk == 0.0, "atol": 1e-6})
+    return launches
+
+
+def phase_driver_reference_config(tmp, main_qg1):
+    """The reference's own CLI configuration, qgsw_raytrace(nx=256,
+    Npackets=50): below window_min_np, so the per-stage stencil path, which
+    launches no kernel of the port. Then 20 steps of the windowed per-stage
+    path at full width (march off), beside main_path_qg1."""
+    cfg_ref = CoupledConfig(nx=256, n_packets=50, packet_delay_days=0.01)
+    s_ref, c_ref = setup_coupled(cfg_ref)
+    if s_ref.march is not None:
+        raise AssertionError("the reference configuration engaged the march")
+    # the parts of one per-stage flow step, each alone (one call between
+    # two events, host included): the flow step, the six field grids, one
+    # rk23 substep (three evaluations of the blended flow at 50 packets)
+    qp = s_ref.qg_params
+    flow_ref = BlendedFlow(fields1=c_ref.prev_fields,
+                           fields2=c_ref.prev_fields, grid=s_ref.grid)
+    parts_ref = time_parts({
+        "qg_step": lambda: qg.qg_step(c_ref.flow_state, s_ref.grid, qp),
+        "flow_from_qk_6_fields": lambda: flow_from_qk(
+            c_ref.flow_state.qk, s_ref.grid, qp.Kd2).fields,
+        "rk23_substep": lambda: rays.rk23_step(
+            c_ref.packet_x, c_ref.packet_k, s_ref.dt / 2, s_ref.disp,
+            flow_ref, 0.0, 0.5)}, reps=9)
+    reset_launches()
+    carry, rd = drivers.qgsw_raytrace(nx=256, Npackets=50,
+                                      packet_delay_days=0.01, max_steps=100,
+                                      out_dir=tmp / "reference",
+                                      verbose=False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches.values()) or carry.overflow is not None:
+        raise AssertionError(f"the per-stage path launched {launches}")
+    out = tmp / "reference"
+    n_frames = binio.frame_count(str(out / "packet_x"), 50, 2)
+    frames_finite(str(out / "packet_x"), n_frames, 50, 2)
+    frames_finite(str(out / "pv"), 3, 256, 256)
+    x = binio.read_field(str(out / "packet_x"), 50, 2,
+                         frames=[1, n_frames])
+    k = binio.read_field(str(out / "packet_k"), 50, 2,
+                         frames=[1, n_frames])
+    moved = float(np.abs(x[..., 1] - x[..., 0]).max())
+    om = np.sqrt(9.0 + (k ** 2).sum(axis=1)) / 3.0        # (50, 2)
+    if n_frames != 21 or not moved > 1e-4:
+        raise AssertionError(f"{n_frames} packet frames; packets moved "
+                             f"{moved}")
+    if not (om[:, 1].std() > 1e-6 and om[:, 1].std() > 10 * om[:, 0].std()):
+        raise AssertionError(f"omega/f did not spread: {om.std(axis=0)}")
+    metrics = rd.read_metrics()
+    ms_ref = [1e3 * m["wall_s"] / m["steps"] for m in metrics]
+
+    # the windowed per-stage path at full width: 20 steps after one
+    # warm-up step, the launch counts set to 0 before the setup
+    cfg = CoupledConfig(**dict(FULL, fused_march=False))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    s, c = setup_coupled(cfg)
+    if s.march is not None:
+        raise AssertionError("the march engaged with fused_march=False")
+    c = prepare_carry_windows(c, s.march, window_threshold(cfg))
+    coupled_flow_packet_step(c, s, cfg)       # warm-up (cuFFT plans)
+    x0 = c.packet_x.clone()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    c, _ = run_coupled_chunk(c, s, cfg, 1)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / cfg.packet_steps_per_save
+    windowed_launches = read_launches()
+    if any(windowed_launches.values()):
+        raise AssertionError(f"the windowed per-stage path launched "
+                             f"{windowed_launches}")
+    if c.prev_win is None or not torch.isfinite(c.packet_x).all() or \
+            not float((c.packet_x - x0).abs().max()) > 1e-4:
+        raise AssertionError("the windowed per-stage path: no windows, "
+                             "packets not finite or not moving")
+    peak = torch.cuda.max_memory_allocated()
+    emit("driver_reference_config", nx=256, n_packets=50, flow_steps=100,
+         march=None, launches=launches, packet_frames=n_frames,
+         pv_frames=3, max_packet_displacement=moved,
+         omega_over_f_start=[float(om[:, 0].mean()), float(om[:, 0].std())],
+         omega_over_f_end=[float(om[:, 1].mean()), float(om[:, 1].std())],
+         ms_per_flow_step_by_chunk=ms_ref,
+         step_parts_ms=dict(parts_ref, flow_step_estimate=(
+             parts_ref["qg_step"] + parts_ref["flow_from_qk_6_fields"]
+             + 2 * parts_ref["rk23_substep"])),
+         windowed_full_width={
+             "nx": cfg.nx, "n_packets": cfg.n_packets, "fused_march": False,
+             "flow_steps": cfg.packet_steps_per_save, "ms_per_flow_step": ms,
+             "peak_memory_bytes": peak, "launches": windowed_launches,
+             "main_path_qg1_ms_per_flow_step": main_qg1["ms_per_flow_step"],
+             "main_path_qg1_peak_memory_bytes":
+                 main_qg1["peak_memory_bytes"]})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -1509,19 +1863,25 @@ def main():
     phase_build()
     phase_kernels_vs_plain(dev)
     phase_path_vs_cpu(dev)
-    two, launches_two, routes_two, steps = phase_main_path(N_CHUNKS)
+    two, launches_two, routes_two, steps, main = phase_main_path(N_CHUNKS)
     rows, bounds = phase_kernels(*two, steps)
     del two
-    one, launches_one, routes_one, _ = phase_main_path_qg1(N_CHUNKS)
+    one, launches_one, routes_one, _, main_qg1 = phase_main_path_qg1(N_CHUNKS)
     rows_one, bounds_one = phase_kernels_qg1(*one)
     del one
     rows_rays, bounds_rays, launches_rays = phase_frozen_path(dev)
     rows += rows_one + rows_rays
     bounds.update(bounds_one, **bounds_rays)
     torch.cuda.synchronize()
-    # launches: over the three main paths, each counted from 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as tmp:
+        tmp = Path(tmp)
+        phase_driver_cli(tmp)
+        launches_driver = phase_driver_path(tmp, main)
+        launches_ref = phase_driver_reference_config(tmp, main_qg1)
+    # launches: over the main paths, each counted from 0
     by_path = {"main_path": launches_two, "main_path_qg1": launches_one,
-               "frozen_path": launches_rays}
+               "frozen_path": launches_rays, "driver_path": launches_driver,
+               "driver_reference_config": launches_ref}
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -1,24 +1,25 @@
 """Lock-step coupled flow + wave-packet stepping (shared by the models).
 
-Counterpart of the fused-march path of swraytracing_tpu/models/
-coupled.py, after the production entry point qgsw_raytrace.m: every flow
-step advances the flow solver one step, then sub-cycles the packet ray
-ODE between the previous and new flow snapshots with linear blending in
-time (interpolate_U.m:19-23). The reference sub-cycles with adaptive
-MATLAB ode23 (qgsw_raytrace.m:149); here a fixed number of RK23/RK4/
-symplectic substeps per flow step runs inside the fused march
-(ops/march_window.py).
+Counterpart of swraytracing_tpu/models/coupled.py, after the production
+entry point qgsw_raytrace.m: every flow step advances the flow solver one
+step, then sub-cycles the packet ray ODE between the previous and new flow
+snapshots with linear blending in time (interpolate_U.m:19-23). The
+reference sub-cycles with adaptive MATLAB ode23 (qgsw_raytrace.m:149);
+here a fixed number of RK23/RK4/symplectic substeps per flow step runs
+either inside the fused march (ops/march_window.py; from window_min_np
+packets on) or stage by stage in plain PyTorch through
+fields.BlendedFlow (below it, or with fused_march off; from
+window_min_np packets on that path interpolates from prebuilt windows).
 
 The velocity grids of the *previous* step are reused as the blend-start
 snapshot, and so are their gather windows, so each step builds windows
 for its new snapshot only.
 
 This module holds the carry, the packet initial conditions, the march
-configuration, the generic lock-step iteration and chunk loop on the
-fused-march path (shared with the two-layer model, coupled2.py), and the
+configuration, the generic lock-step iteration (both packet paths) and
+chunk loop (shared with the two-layer model, coupled2.py), and the
 one-layer model's entry points (`CoupledConfig`, `setup_coupled`,
-`coupled_flow_packet_step`, `run_coupled_chunk`). The per-stage packet
-path below `window_min_np` packets is not ported yet.
+`coupled_flow_packet_step`, `run_coupled_chunk`).
 
 Everything runs eagerly: a chunk is a Python loop over flow steps, each a
 fixed sequence of device launches with no host synchronisation (time and
@@ -34,10 +35,12 @@ import numpy as np
 import torch
 
 from ..ops.grid import SpectralGrid, resolve_device
+from ..ops import interp as _interp
 from ..ops import march_window as mw
 from ..ops import spectral as sp
+from . import rays
 from .dispersion import Dispersion
-from .fields import flow_from_qk
+from .fields import BlendedFlow, flow_from_qk
 from .qg import (QGParams, qg_init, qg_step, initial_q_ring,
                  inertial_ring_forcing, max_speed)
 
@@ -197,16 +200,20 @@ def march_n_fields(march) -> int:
     return march.nf if march is not None else 6
 
 
-def _per_stage_path_missing():
-    return NotImplementedError(
-        "the fused march is not engaged (n_packets below window_min_np, "
-        "fused_march off, or a grid too small for a window) and the "
-        "per-stage packet path is not ported yet: ROADMAP item A8")
+def _substep_fn(name: str):
+    if name == "rk23":
+        return rays.rk23_step
+    if name == "rk4":
+        return rays.rk4_step
+    if name == "symplectic":
+        return None  # handled specially (no alpha ramp within substep)
+    raise ValueError(f"unknown stepper {name!r}")
 
 
-def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, dt,
-                  packet_delay, n_substeps: int, stepper: str,
-                  march: mw.MarchSpec | None = None) -> CoupledCarry:
+def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
+                  dt, packet_delay, n_substeps: int, stepper: str,
+                  march: mw.MarchSpec | None = None,
+                  window_min_np: int | None = None) -> CoupledCarry:
     """Generic lock-step iteration (qgsw_raytrace.m:121-151 and
     qg2layersw_raytrace.m:152-197): advance the flow one step, rebuild
     velocity grids, sub-cycle packets against the time-blended snapshots.
@@ -219,50 +226,101 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, dt,
       flow_step_fn: flow_state -> flow_state (one solver step; must
         advance .t).
       fields_fn: flow_state -> (nf, nx, ny) stacked velocity/gradients
-        (nf = march.nf — march_n_fields).
-      march: fused-march spec. Engagement was decided at setup
-        (build_march_spec); None (disengaged) raises NotImplementedError.
+        (nf = march_n_fields(march)).
+      march: fused-march spec, or None when disengaged. Engagement was
+        decided at setup (build_march_spec).
+      window_min_np: packet count from which the per-stage path (march
+        None) interpolates from prebuilt windows (ops/interp.build_windows)
+        instead of the stencil; None means the default 65536. Pass the
+        config's value (window_threshold).
 
-    With (ncells, K) window rows (march.tiles_transposed, what
-    build_march_spec always makes) the packets march straight from the two
-    window arrays (march_window.fused_march_gathered): no stacked copy, no
-    gathered copy, whatever march.combined_gather says. A hand-made spec
-    with (K, ncells) windows gathers first, in one gather
+    The fused march: with (ncells, K) window rows (march.tiles_transposed,
+    what build_march_spec always makes) the packets march straight from
+    the two window arrays (march_window.fused_march_gathered): no stacked
+    copy, no gathered copy, whatever march.combined_gather says. A
+    hand-made spec with (K, ncells) windows gathers first, in one gather
     (combined_gather) or two, and calls march_window.fused_march.
+
+    The per-stage path (march None) evaluates the blended flow at every
+    stage of n_substeps rk23 / rk4 steps with the alpha ramp, or of
+    symplectic steps at alpha = i/m + 0.5/m, in plain PyTorch; it has no
+    overflow counter.
     """
-    if march is None:
-        raise _per_stage_path_missing()
+    if window_min_np is None:
+        window_min_np = _WINDOW_MIN_NP
     new_state = flow_step_fn(carry.flow_state)
     fields2 = fields_fn(new_state)
+    Np = carry.packet_x.shape[-1]
 
     exp_nf = march_n_fields(march)
     if carry.prev_fields.shape[0] != exp_nf:
+        path = (f"march engaged, nf={march.nf}" if march is not None
+                else "march disengaged")
         raise ValueError(
             f"carry.prev_fields holds {carry.prev_fields.shape[0]} field "
             f"grids but this configuration's path needs {exp_nf} "
-            f"(march engaged, nf={march.nf}). The carry was built under a "
-            "different march/window configuration — rebuild it with "
-            "setup_coupled / setup_coupled2.")
+            f"({path}). The carry was built under a different march/window "
+            "configuration — rebuild it with setup_coupled / setup_coupled2 "
+            "or reconcile prev_fields (the drivers do this on resume).")
     if fields2.shape[0] != exp_nf:
         raise ValueError(
             f"fields_fn produced {fields2.shape[0]} field grids but the "
             f"path needs {exp_nf}; pass n_fields=march_n_fields(march).")
 
+    active = new_state.t > packet_delay
+    if march is not None:
+        return _march_step(carry, new_state, fields2, dt, active,
+                           n_substeps, stepper, march)
+
+    if Np >= window_min_np:
+        # prebuilt windows: one gathered row per packet per evaluation.
+        # Only the new snapshot's are built here; the blend-start
+        # snapshot's come with the carry (prepare_carry_windows).
+        win1 = carry.prev_win
+        if win1 is None:
+            win1 = _interp.build_windows(carry.prev_fields)
+        win2 = _interp.build_windows(fields2)
+        flow = BlendedFlow(fields1=carry.prev_fields, fields2=fields2,
+                           grid=grid, win1=win1, win2=win2)
+    else:
+        win2 = None
+        flow = BlendedFlow(fields1=carry.prev_fields, fields2=fields2,
+                           grid=grid)
+    m = n_substeps
+    sub_dt = dt / m if active else 0.0
+    step = _substep_fn(stepper)
+    x, k = carry.packet_x, carry.packet_k
+    for i in range(m):
+        a0 = i / m
+        if step is None:
+            x, k = rays.symplectic_step(x, k, sub_dt, disp, flow,
+                                        alpha=a0 + 0.5 / m)
+        else:
+            x, k = step(x, k, sub_dt, disp, flow, alpha0=a0, dalpha=1.0 / m)
+    # a carry that came in with windows leaves with the new snapshot's
+    out_win = win2 if carry.prev_win is not None else None
+    return CoupledCarry(flow_state=new_state, packet_x=x, packet_k=k,
+                        prev_fields=fields2, prev_win=out_win,
+                        overflow=carry.overflow)
+
+
+def _march_step(carry, new_state, fields2, dt, active, n_substeps, stepper,
+                march):
+    """The fused-march branch of lockstep_step: windows read ONCE per flow
+    step with a `margin` drift allowance, all substeps in one kernel
+    launch. Identical arithmetic to the per-stage path as long as no
+    packet drifts more than `margin` cells within the step — the running
+    max of the march's overflow counter is carried for callers to assert
+    on."""
     if march.stepper != stepper or march.n_substeps != n_substeps:
         raise ValueError(
             "MarchSpec built for a different stepper configuration: "
             f"{march.stepper} x{march.n_substeps} vs {stepper} x"
             f"{n_substeps}; rebuild the setup with the new config")
-    # Fused-march path: windows read ONCE per flow step with a
-    # `margin` drift allowance, all substeps in one kernel launch.
-    # Identical arithmetic to a per-stage path as long as no packet drifts
-    # more than `margin` cells within the step — the running max of the
-    # march's overflow counter is carried for callers to assert on.
     win2 = mw.build_gather_windows(fields2, march)
     win1 = carry.prev_win
     if win1 is None or win1.shape != win2.shape:
         win1 = mw.build_gather_windows(carry.prev_fields, march)
-    active = new_state.t > packet_delay
     sub_dt = dt / n_substeps if active else 0.0
     x, k = carry.packet_x, carry.packet_k
     oi, oj = mw.packet_cells(x[0], x[1], march)
@@ -294,29 +352,46 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, dt,
 
 
 def prepare_carry_windows(carry: CoupledCarry,
-                          march: mw.MarchSpec | None = None) -> CoupledCarry:
+                          march: mw.MarchSpec | None = None,
+                          window_min_np: int | None = None) -> CoupledCarry:
     """Make the carry's window/overflow slots consistent with the path
-    lockstep_step will take: prev_fields' windows prebuilt (each step then
-    builds windows only for its new snapshot) and an overflow counter
-    starting at 0. Returns a new carry where anything changes."""
-    if march is None:
-        raise _per_stage_path_missing()
-    if carry.overflow is None:
+    lockstep_step will take: on a window path (the fused march, or the
+    per-stage path from window_min_np packets on) prev_fields' windows
+    prebuilt, by that path's window build, so each step builds windows
+    only for its new snapshot; an overflow counter starting at 0 on the
+    fused march and none on the per-stage path. Returns a new carry where
+    anything changes."""
+    if window_min_np is None:
+        window_min_np = _WINDOW_MIN_NP
+    march_on = march is not None
+    if march_on and carry.overflow is None:
         carry = dataclasses.replace(carry, overflow=torch.zeros(
             (), dtype=torch.int32, device=carry.packet_x.device))
+    if not march_on and carry.overflow is not None:
+        carry = dataclasses.replace(carry, overflow=None)
     win = carry.prev_win
-    # Stale-window check must follow the window layout:
-    # tiles_transposed stores (ncells, K), otherwise (K, ncells).
-    k_ax = -1 if march.tiles_transposed else 0
-    if win is None or win.shape[k_ax] != march.K:
-        return dataclasses.replace(
-            carry, prev_win=mw.build_gather_windows(carry.prev_fields, march))
+    if march_on:
+        # Stale-window check must follow the window layout:
+        # tiles_transposed stores (ncells, K), otherwise (K, ncells).
+        k_ax = -1 if march.tiles_transposed else 0
+        if win is None or win.shape[k_ax] != march.K:
+            return dataclasses.replace(carry, prev_win=mw.build_gather_windows(
+                carry.prev_fields, march))
+        return carry
+    if carry.packet_x.shape[-1] >= window_min_np:
+        if win is None:
+            return dataclasses.replace(
+                carry, prev_win=_interp.build_windows(carry.prev_fields))
+        return carry
+    if win is not None:
+        return dataclasses.replace(carry, prev_win=None)
     return carry
 
 
 def run_lockstep_chunk(carry: CoupledCarry, step_fn, march,
                        steps_per_save: int, n_saves: int,
-                       remat: bool = False, diag_fn=None):
+                       remat: bool = False, diag_fn=None,
+                       window_min_np: int | None = None):
     """The chunk loop both models share: n_saves * steps_per_save calls of
     `step_fn` (carry -> carry), one save after every steps_per_save. See
     run_coupled_chunk for what it returns."""
@@ -324,7 +399,7 @@ def run_lockstep_chunk(carry: CoupledCarry, step_fn, march,
         raise NotImplementedError(
             "rematerialised differentiable chunks (remat=True) are not "
             "ported yet: ROADMAP item A10")
-    carry = prepare_carry_windows(carry, march)
+    carry = prepare_carry_windows(carry, march, window_min_np)
     saves, ts = [], []
     for _ in range(n_saves):
         for _ in range(steps_per_save):
@@ -398,8 +473,9 @@ def coupled_flow_packet_step(carry: CoupledCarry, s: CoupledSetup,
         flow_step_fn=lambda st: qg_step(st, grid, qp),
         fields_fn=lambda st: flow_from_qk(st.qk, grid, qp.Kd2,
                                           n_fields=nf).fields,
-        dt=s.dt, packet_delay=s.packet_delay, n_substeps=cfg.n_substeps,
-        stepper=cfg.stepper, march=s.march)
+        grid=grid, disp=s.disp, dt=s.dt, packet_delay=s.packet_delay,
+        n_substeps=cfg.n_substeps, stepper=cfg.stepper, march=s.march,
+        window_min_np=window_threshold(cfg))
 
 
 def run_coupled_chunk(carry: CoupledCarry, s: CoupledSetup,
@@ -422,4 +498,5 @@ def run_coupled_chunk(carry: CoupledCarry, s: CoupledSetup,
     ported yet and raises NotImplementedError."""
     return run_lockstep_chunk(
         carry, lambda c: coupled_flow_packet_step(c, s, cfg), s.march,
-        cfg.packet_steps_per_save, n_saves, remat, diag_fn)
+        cfg.packet_steps_per_save, n_saves, remat, diag_fn,
+        window_threshold(cfg))

@@ -27,7 +27,8 @@ import torch
 from ..ops.grid import SpectralGrid, resolve_device
 from .dispersion import Dispersion
 from .coupled import (CoupledCarry, lockstep_step, ring_packet_ics,
-                      run_lockstep_chunk, build_march_spec, march_n_fields)
+                      run_lockstep_chunk, build_march_spec, march_n_fields,
+                      window_threshold)
 from .qg2 import (QG2Params, QG2Operators, qg2_init, qg2_step,
                   build_operators, initial_q2_ring, top_layer_flow,
                   max_speed2)
@@ -151,8 +152,9 @@ def coupled2_flow_packet_step(carry: CoupledCarry, s: Coupled2Setup,
         fields_fn=lambda st: top_layer_flow(
             st.qk, s.grid, s.ops, s.params, cfg.one_layer_quirk,
             n_fields=nf).fields,
-        dt=s.dt, packet_delay=s.packet_delay, n_substeps=cfg.n_substeps,
-        stepper=cfg.stepper, march=s.march)
+        grid=s.grid, disp=s.disp, dt=s.dt, packet_delay=s.packet_delay,
+        n_substeps=cfg.n_substeps, stepper=cfg.stepper, march=s.march,
+        window_min_np=window_threshold(cfg))
 
 
 def run_coupled2_chunk(carry: CoupledCarry, s: Coupled2Setup,
@@ -174,4 +176,5 @@ def run_coupled2_chunk(carry: CoupledCarry, s: Coupled2Setup,
     ported yet and raises NotImplementedError."""
     return run_lockstep_chunk(
         carry, lambda c: coupled2_flow_packet_step(c, s, cfg), s.march,
-        cfg.packet_steps_per_save, n_saves, remat, diag_fn)
+        cfg.packet_steps_per_save, n_saves, remat, diag_fn,
+        window_threshold(cfg))

@@ -8,10 +8,13 @@ streamfunction or PV spectrum, and their evaluation off the grid by
 Lagrangian stencil interpolation (`GriddedFlow.at`), which returns a
 FlowEval of (u, v, u_x, u_y, v_x, v_y) at the packet positions.
 
-The fused packet march (ops/march_window.py) interpolates from the grids
-itself and does not go through `.at`. Prebuilt interpolation windows
-(`GriddedFlow.windowed`), `BlendedFlow` and `AnalyticFlow` are not part of
-this module yet.
+`BlendedFlow` blends two snapshots linearly in the within-step time
+fraction `alpha` (interpolate_U.m:19-23); it is the flow of the per-stage
+packet path of models/coupled.py. Both flows take prebuilt interpolation
+windows (`.windowed()`, ops/interp.build_windows), which the coupled
+models use from `window_min_np` packets on. The fused packet march
+(ops/march_window.py) interpolates from the grids itself and does not go
+through `.at`. `AnalyticFlow` is not part of this module yet.
 """
 
 from __future__ import annotations
@@ -23,11 +26,12 @@ import torch
 
 from ..ops.grid import SpectralGrid
 from ..ops import spectral as sp
-from ..ops.interp import stencil_and_weights, interp_stencil_apply
+from ..ops.interp import (stencil_and_weights, interp_stencil_apply,
+                          build_windows, interp_windowed)
 from .qg import _psik
 
-__all__ = ["FlowEval", "GriddedFlow", "flow_from_qk", "flow_from_psik",
-           "flow_from_psi_grid"]
+__all__ = ["FlowEval", "GriddedFlow", "BlendedFlow", "flow_from_qk",
+           "flow_from_psik", "flow_from_psi_grid"]
 
 # Field stacking order used throughout: [u, v, u_x, u_y, v_x, v_y].
 U, V, UX, UY, VX, VY = range(6)
@@ -65,10 +69,20 @@ class GriddedFlow:
     fields: torch.Tensor  # (n_fields, nx, ny) stacked [u, v, ux, uy, vx, vy]
     grid: SpectralGrid
     order: int = 2
+    win: torch.Tensor | None = None  # optional prebuilt windows
+
+    def windowed(self) -> "GriddedFlow":
+        """A copy with the interpolation windows prebuilt: one gathered row
+        per packet instead of S*S point gathers (ops/interp.build_windows)."""
+        return dataclasses.replace(
+            self, win=build_windows(self.fields, self.order))
 
     def at(self, x, y, alpha=0.0) -> FlowEval:
         """The six fields at positions x, y (Np,); a steady flow ignores
         the within-step time fraction `alpha`."""
+        if self.win is not None:
+            return FlowEval(*interp_windowed(
+                self.win, self.fields.shape[0], x, y, self.grid, self.order))
         ix, iy, wx, wy = stencil_and_weights(x, y, self.grid, self.order)
         vals = interp_stencil_apply(self.fields, ix, iy, wx, wy)
         return FlowEval(*vals)
@@ -76,6 +90,47 @@ class GriddedFlow:
     def velocity_at(self, x, y, alpha=0.0):
         ix, iy, wx, wy = stencil_and_weights(x, y, self.grid, self.order)
         vals = interp_stencil_apply(self.fields[:2], ix, iy, wx, wy)
+        return vals[0], vals[1]
+
+
+@dataclasses.dataclass
+class BlendedFlow:
+    """Two flow snapshots blended linearly in within-step time `alpha`,
+    as the reference's interpolate_U (interpolate_U.m:19-23). The twelve
+    per-snapshot interpolations share one stencil computation."""
+
+    fields1: torch.Tensor  # (6, nx, ny) at step start
+    fields2: torch.Tensor  # (6, nx, ny) at step end
+    grid: SpectralGrid
+    order: int = 2
+    win1: torch.Tensor | None = None  # optional prebuilt windows
+    win2: torch.Tensor | None = None
+
+    def windowed(self) -> "BlendedFlow":
+        """Prebuild interpolation windows for both snapshots (once per flow
+        step); each eval then blends the window arrays and gathers one row
+        per packet."""
+        return dataclasses.replace(
+            self, win1=build_windows(self.fields1, self.order),
+            win2=build_windows(self.fields2, self.order))
+
+    def at(self, x, y, alpha) -> FlowEval:
+        # Blend the GRIDS (or windows) first, then interpolate once:
+        # interpolation is linear, so this equals blending the twelve
+        # interpolated values, at half the gathers.
+        if self.win1 is not None:
+            w = (1.0 - alpha) * self.win1 + alpha * self.win2
+            return FlowEval(*interp_windowed(
+                w, self.fields1.shape[0], x, y, self.grid, self.order))
+        ix, iy, wx, wy = stencil_and_weights(x, y, self.grid, self.order)
+        blended = (1.0 - alpha) * self.fields1 + alpha * self.fields2
+        return FlowEval(*interp_stencil_apply(blended, ix, iy, wx, wy))
+
+    def velocity_at(self, x, y, alpha):
+        ix, iy, wx, wy = stencil_and_weights(x, y, self.grid, self.order)
+        blended = ((1.0 - alpha) * self.fields1[:2]
+                   + alpha * self.fields2[:2])
+        vals = interp_stencil_apply(blended, ix, iy, wx, wy)  # (2, Np)
         return vals[0], vals[1]
 
 

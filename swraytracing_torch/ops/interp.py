@@ -28,8 +28,15 @@ Gradients: exact w.r.t. both positions (piecewise-polynomial) and field
 values (linear), via autograd; the transpose of the gather is a
 scatter-add.
 
-The windowed gather path (`build_windows`, `interp_windowed`) and
-`interpolate_cubic` are not ported yet and raise NotImplementedError.
+The windowed path (`build_windows`, `interp_windowed`) prebuilds every
+cell's S x S window of the nf fields once per snapshot, so an evaluation
+gathers one row per packet. The JAX package chunks that gather over the
+packet axis (`_GATHER_CHUNK`) for a TPU gather fault; here it is one
+index_select: the gathered rows take Np * S*S * nf elements, 0.9 GB in
+float32 at nf=6, order 2 and 2^20 packets, which an 80 GB card holds, so
+nothing is chunked.
+
+`interpolate_cubic` is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -178,19 +185,35 @@ def interpolate_stack(F, x, y, grid: SpectralGrid, order: int = 2):
     return interp_stencil_apply(F, ix, iy, wx, wy)
 
 
-def _not_ported(name: str, item: str):
-    return NotImplementedError(f"{name} is not ported yet: ROADMAP item "
-                               f"{item}")
-
-
 def build_windows(F, order: int = 2):
-    raise _not_ported("interp.build_windows (the windowed gather path)", "A8")
+    """Materialise the full (S x S, nf) interpolation window of every grid
+    cell: returns W of shape (nx*ny, S*S*nf) where row (i*ny + j) holds
+    F[:, i-order:i+order+2, j-order:j+order+2] (periodic) laid out as
+    (sx, sy, f). Pure data movement, so exact. The memory cost is (S*S)x
+    the field stack (226 MB at 512^2, nf=6, float32)."""
+    if F.dim() == 2:
+        F = F[None]
+    nf, nx, ny = F.shape
+    S = 2 * order + 2
+    Fp = torch.cat([F[:, :, ny - order:], F, F[:, :, :order + 2]], dim=2)
+    Fp = torch.cat([Fp[:, nx - order:], Fp, Fp[:, :order + 2]], dim=1)
+    # (nf, nx+1, ny+1, Sx, Sy) views of every S x S window; keep nx x ny
+    win = Fp.unfold(1, S, 1).unfold(2, S, 1)[:, :nx, :ny]
+    return win.permute(1, 2, 3, 4, 0).reshape(nx * ny, S * S * nf)
 
 
 def interp_windowed(W, nf, x, y, grid: SpectralGrid, order: int = 2):
-    raise _not_ported("interp.interp_windowed (the windowed gather path)",
-                      "A8")
+    """Interpolate nf stacked fields from a prebuilt window array W (see
+    build_windows) at packet positions x, y (Np,): one row gathered per
+    packet instead of S*S point gathers, the same Lagrange weights.
+    Returns (nf, Np)."""
+    i0, j0, wx, wy = cell_and_weights(x, y, grid, order)
+    starts = i0.to(torch.int64) * grid.ny + j0
+    S = 2 * order + 2
+    g = W.index_select(0, starts).reshape(-1, S, S, nf)   # (Np, S, S, nf)
+    return torch.einsum("cxyf,xc,yc->fc", g, wx, wy)
 
 
 def interpolate_cubic(F, x, y, grid: SpectralGrid):
-    raise _not_ported("interp.interpolate_cubic", "A12")
+    raise NotImplementedError("interp.interpolate_cubic is not ported yet: "
+                              "ROADMAP item A12")

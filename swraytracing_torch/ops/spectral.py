@@ -28,6 +28,7 @@ __all__ = [
     "padded_grid",
     "padded_product",
     "dealiased_jacobian",
+    "isospectrum",
 ]
 
 
@@ -172,3 +173,34 @@ def dealiased_jacobian(ak, bk, grid: SpectralGrid, dealias: bool = True):
     ax, ay = to_grid(akx, grid), to_grid(aky, grid)
     bx, by = to_grid(bkx, grid), to_grid(bky, grid)
     return to_spectral(ax * by - ay * bx, grid)
+
+
+# ---------------------------------------------------------------------------
+# Diagnostics
+# ---------------------------------------------------------------------------
+
+def isospectrum(fk2: torch.Tensor, grid: SpectralGrid) -> torch.Tensor:
+    """Azimuthal ring-sum of a half-plane spectral density.
+
+    Reference: rsw/isospectrum.m (which operates on the full plane); here
+    the ky>0 half-plane is double-counted to account for the conjugate
+    half, matching the full-plane sum for densities of real fields.
+
+    Args:
+      fk2: real spectral density on the rfft2 half-plane (e.g. |fk|^2).
+    Returns:
+      (kmax,) tensor, ring K=1..kmax sums, one index_add_ over the plane.
+    """
+    ikx = np.fft.fftfreq(grid.nx, d=1.0 / grid.nx)[:, None]
+    iky = np.arange(grid.nky)[None, :]
+    Kround = np.floor(np.sqrt(ikx**2 + iky**2) + 0.5).astype(np.int64)
+    # double-count interior ky>0 columns (conjugate half-plane)
+    weight = np.where((iky > 0) & (iky < grid.ny - iky), 2.0, 1.0)
+    kmax = grid.kmax
+    keep = Kround <= kmax                       # (nx, nky)
+    vals = (fk2 * torch.as_tensor(weight, dtype=fk2.dtype,
+                                  device=fk2.device))[
+        torch.as_tensor(keep, device=fk2.device)]
+    bins = torch.as_tensor(Kround[keep], device=fk2.device)
+    rings = fk2.new_zeros(kmax + 1).index_add_(0, bins, vals)
+    return rings[1:]

@@ -175,14 +175,14 @@ def test_diag_fn_replaces_packet_saves():
 
 
 def test_unported_paths_raise_and_name_their_roadmap_item():
-    # below window_min_np the per-stage packet path would run: not ported
+    # below window_min_np the per-stage packet path runs (ported; held
+    # against JAX in tests/test_torch_per_stage.py)
     cfg = tc2.Coupled2Config(**dict(CFG, window_min_np=65536))
     s, carry = tc2.setup_coupled2(cfg, device="cpu", dtype=torch.float64)
     assert s.march is None and carry.prev_fields.shape[0] == 6
-    with pytest.raises(NotImplementedError, match="A8"):
-        tc2.run_coupled2_chunk(carry, s, cfg, 1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tc2.coupled2_flow_packet_step(carry, s, cfg)
+    c1, (px, _, _) = tc2.run_coupled2_chunk(carry, s, cfg, 1)
+    assert c1.overflow is None and torch.isfinite(px).all()
+    assert tc2.coupled2_flow_packet_step(carry, s, cfg).prev_win is None
     # remat chunks
     _, _, _, tcfg, ts, tc = _setups()
     with pytest.raises(NotImplementedError, match="A10"):

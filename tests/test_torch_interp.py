@@ -155,12 +155,14 @@ def test_flow_from_psi_grid():
 
 
 def test_unported_window_paths_name_their_roadmap_item():
+    # the windowed path is ported (held against JAX in
+    # tests/test_torch_per_stage.py); the cubic interpolation is not
     tg = TGrid.square(NX)
-    F = torch.zeros(6, NX, NX)
+    F = torch.ones(6, NX, NX)
     x = torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tin.build_windows(F)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tin.interp_windowed(F, 6, x, x, tg)
+    W = tin.build_windows(F)
+    assert W.shape == (NX * NX, 36 * 6)
+    assert torch.allclose(tin.interp_windowed(W, 6, x, x, tg),
+                          torch.ones(6, 3))
     with pytest.raises(NotImplementedError, match="A12"):
         tin.interpolate_cubic(F[0], x, x, tg)

@@ -36,15 +36,23 @@ def _run(code):
     "swraytracing_torch.models.coupled", "swraytracing_torch.models.qg",
     "swraytracing_torch.ops.interp", "swraytracing_torch.models.fields",
     "swraytracing_torch.models.rays", "swraytracing_torch.ops.march_rays",
-    "swraytracing_torch.models.frozen"])
+    "swraytracing_torch.models.frozen", "swraytracing_torch.drivers",
+    "swraytracing_torch.__main__", "swraytracing_torch.io",
+    "swraytracing_torch.io.binio", "swraytracing_torch.io.runmeta",
+    "swraytracing_torch.io.asyncwriter", "swraytracing_torch.io.checkpoint",
+    "swraytracing_torch.analysis", "swraytracing_torch.analysis.device_diag",
+    "swraytracing_torch.analysis.spectra",
+    "swraytracing_torch.analysis.plots"])
 def test_import_pulls_in_no_jax(module):
     """Importing the port (and chip_smoke, import only) loads neither jax,
-    flax nor the JAX package, and builds or loads no kernel."""
+    flax, the JAX package nor matplotlib (which the card's machine does not
+    have), and builds or loads no kernel."""
     r = _run(
         "import sys, importlib\n"
         f"importlib.import_module({module!r})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'swraytracing_tpu', 'triton')]\n"
+        "('jax', 'jaxlib', 'flax', 'swraytracing_tpu', 'triton', "
+        "'matplotlib', 'PIL')]\n"
         "assert not bad, bad\n"
         "from swraytracing_torch import kernels\n"
         "assert kernels._lib is None\n"
