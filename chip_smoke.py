@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
 
-builds the four CUDA kernels of swraytracing_torch from the sources in this
-checkout (march, transpose, build_windows, march_rays), holds each against
-its plain PyTorch version on the card (the march through both of its
-entries: rows read by cell from the window arrays, and pre-gathered rows),
-runs every path once on the card and
+builds the CUDA kernels of swraytracing_torch from the sources in this
+checkout (march, transpose, build_windows, march_rays, and the first three
+batched over the members of an ensemble, one launch for all), holds each
+against its plain PyTorch version on the card (the march through both of its
+entries: rows read by cell from the window arrays, and pre-gathered rows;
+each batched kernel also member by member against a single-member launch,
+bit for bit), runs every path once on the card and
 once on the CPU at a small size and compares them (the per-stage packet path
 too), then drives the main paths at full width, each with the launch counts
 set to 0 just before it and read just after:
@@ -33,7 +35,14 @@ set to 0 just before it and read just after:
   driver_reference_config
                  the reference's own configuration (256^2, 50 packets) on
                  the per-stage path, which launches no kernel of the port,
-                 and 20 steps of the windowed per-stage path at full width.
+                 and 20 steps of the windowed per-stage path at full width;
+  ensemble_path  the JAX package's Run I sweep (12 members, 256^2, 2^14
+                 packets each) through run_sweep(ensemble=True), 300 flow
+                 steps with one launch of the batched march and of the
+                 batched transpose a step for all members (then a resume,
+                 100 steps with the batched one-pass window build as its
+                 own path, ensemble_path_fused_build, and the same members
+                 one after another through the solo chunk beside it).
 
 Each phase prints one JSON line. Any failed phase raises, so the exit code
 is non-zero; without a CUDA device the script fails at once and runs
@@ -92,6 +101,7 @@ from swraytracing_torch.ops import march_rays as mr
 from swraytracing_torch.ops import march_window as mw
 from swraytracing_torch.ops import spectral as sp
 from swraytracing_torch.ops.grid import SpectralGrid
+from swraytracing_torch.parallel import ensemble as ens
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 / float64 rates outside the tensor cores.
@@ -100,23 +110,30 @@ FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 # The TPU kernels the CUDA kernels replace (file:line of the function
 # that reaches pl.pallas_call).
+# The batched kernels replace the same functions as the JAX package runs
+# them under jax.vmap over an ensemble's members (parallel/ensemble.py).
 REPLACES = {
     "march": "swraytracing_tpu/ops/pallas_window.py:622",
     "transpose": "swraytracing_tpu/ops/pallas_window.py:181",
     "build_windows": "swraytracing_tpu/ops/pallas_window.py:246",
     "march_rays": "swraytracing_tpu/ops/pallas_ray.py:80",
 }
+REPLACES.update({f"{name}_batched": REPLACES[name]
+                 for name in ("march", "transpose", "build_windows")})
 SOURCES = {
     "march": "swraytracing_torch/kernels/csrc/march.cuh",
     "transpose": "swraytracing_torch/kernels/csrc/transpose.cu",
     "build_windows": "swraytracing_torch/kernels/csrc/build_windows.cu",
     "march_rays": "swraytracing_torch/kernels/csrc/march_rays.cu",
 }
+SOURCES.update({f"{name}_batched": SOURCES[name]
+                for name in ("march", "transpose", "build_windows")})
 # "march" is the entry the coupled paths launch (rows read by cell);
 # "march_pregathered" is the same kernel behind march_cuda, which no main
 # path launches (it has no row of its own in the `kernels` line);
 # "cell_order" is the counting sort of march_rays.cu that march_rays_cuda
-# runs before each of its launches (counted in the march_rays row).
+# runs before each of its launches (counted in the march_rays row);
+# "*_batched" are the kernels of an ensemble's members, one launch for all.
 WRAPPERS = {
     "march": mw.march_gathered_cuda,
     "march_pregathered": mw.march_cuda,
@@ -124,6 +141,9 @@ WRAPPERS = {
     "build_windows": mw.build_windows_cuda,
     "march_rays": mr.march_rays_cuda,
     "cell_order": mr.cell_order_cuda,
+    "march_batched": mw.march_gathered_batched_cuda,
+    "transpose_batched": mw.transpose_batched_cuda,
+    "build_windows_batched": mw.build_windows_batched_cuda,
 }
 
 # float32 tolerance of the march kernel against its plain version. Both do
@@ -191,7 +211,8 @@ def cuda_ms_run(fn, launches=20, reps=5):
     return cuda_ms(lambda: [fn() for _ in range(launches)], reps) / launches
 
 
-MARCH_WRAPPERS = (mw.march_gathered_cuda, mw.march_cuda)
+MARCH_WRAPPERS = (mw.march_gathered_cuda, mw.march_cuda,
+                  mw.march_gathered_batched_cuda)
 
 
 def reset_launches():
@@ -606,6 +627,116 @@ def check_march_rays(dev):
     return report
 
 
+def require_one_launch(wrapper, fn, label):
+    """Run fn() and check that it launched `wrapper`'s kernel exactly once."""
+    before = wrapper.launches
+    result = fn()
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{label}: {wrapper.launches - before} launches, "
+                             "expected one for all members")
+    return result
+
+
+def check_batched_kernels(dev):
+    """The three batched kernels (one launch for all members of an
+    ensemble) at Run I's shape (12 members, 256^2, 2^14 packets each, rk23
+    with 2 substeps, uv windows, margin 1, K = 128, float32) and in float64
+    on a small case: each against its plain version, and each member
+    against a single-member launch of the solo kernel on its own arrays,
+    bit for bit. Every member has its own substep length; member 0 has
+    sub_dt = 0 and its packets come back unchanged."""
+    report = {}
+    for dtype, rtol, atol, E, nx, n_p in (
+            (torch.float32, F32_RTOL, F32_ATOL, 12, 256, 2 ** 14),
+            (torch.float64, 0.0, F64_ATOL, 3, 64, 4096)):
+        L = 2.0 * np.pi
+        dx = L / nx
+        rng = np.random.default_rng(20240603)
+        F = torch.as_tensor(np.stack([smooth_fields(rng, 4, nx)
+                                      for _ in range(E)]),
+                            dtype=dtype, device=dev)
+        xh = rng.uniform(0.0, L, (E, 2, n_p))
+        xh[:, :, 0] = [-1e-18, L]
+        xh[:, :, 1] = [L, -1e-18]
+        xh[:, :, 2] = [np.nextafter(dx, 0), np.nextafter(dx, 1)]
+        x = torch.as_tensor(xh, dtype=dtype, device=dev)
+        k = torch.as_tensor(rng.normal(0.0, 3.0, (E, 2, n_p)), dtype=dtype,
+                            device=dev)
+        spec = mw.MarchSpec(nx=nx, ny=nx, dx=dx, dy=dx, f=3.0, Cg=1.0,
+                            n_substeps=2, nf=2, grad_from_interp=True,
+                            margin=1, tiles_transposed=True)
+        label = f"batched {dtype} E={E}"
+        wins = []
+        for F_ in (F[:, :2].contiguous(), F[:, 2:].contiguous()):
+            W = mw.build_margin_windows(F_, spec).contiguous()
+            win = require_one_launch(mw.transpose_batched_cuda,
+                                     lambda: mw.transpose_batched_cuda(W),
+                                     label)
+            built = require_one_launch(
+                mw.build_windows_batched_cuda,
+                lambda: mw.build_windows_batched_cuda(F_, spec), label)
+            torch.cuda.synchronize()
+            if tuple(win.shape) != (E, nx * nx, spec.K):
+                raise AssertionError(f"{label}: window shape {win.shape}")
+            if not torch.equal(win, mw.transpose_batched_reference(W)):
+                raise AssertionError(f"{label}: transpose_batched differs "
+                                     "from its plain version")
+            if not torch.equal(built, mw.build_windows_batched_reference(
+                    F_, spec)) or not torch.equal(built, win):
+                raise AssertionError(f"{label}: build_windows_batched differs "
+                                     "from its plain version or the two-pass "
+                                     "route")
+            for e in range(E):
+                if not (torch.equal(win[e], mw.transpose_cuda(W[e]))
+                        and torch.equal(built[e],
+                                        mw.build_windows_cuda(F_[e], spec))):
+                    raise AssertionError(f"{label}: member {e} differs from "
+                                         "its single-member launch")
+            wins.append(win)
+            del W, built
+        oi, oj = mw.packet_cells(x[:, 0], x[:, 1], spec)
+        xk = torch.cat([x, k], dim=1)
+        sub_dt = torch.tensor([0.1 * dx * e / E for e in range(E)],
+                              dtype=torch.float64, device=dev)
+        inputs = (*wins, xk, oi, oj)
+        err, share, ovmax, got, route = require_one_launch(
+            mw.march_gathered_batched_cuda,
+            lambda: compare_march(inputs, sub_dt, spec, rtol, atol, label,
+                                  kernel=mw.march_gathered_batched_cuda,
+                                  plain=mw.march_gathered_batched_reference),
+            label)
+        if ovmax != 0:
+            raise AssertionError(f"{label}: overflow {ovmax}")
+        if not torch.equal(got[0], xk[0]):
+            raise AssertionError(f"{label}: the member at sub_dt = 0 moved")
+        routes = {}
+        for r in ("staged", "direct"):
+            if r == "staged" and not fits_staged(spec, dtype):
+                continue
+            out, ov = mw.march_gathered_batched_cuda(*inputs, sub_dt, spec,
+                                                     route=r)
+            for e in range(E):
+                solo, ov_solo = mw.march_gathered_cuda(
+                    wins[0][e], wins[1][e], xk[e], oi[e], oj[e],
+                    float(sub_dt[e]), spec, route=r)
+                if not (torch.equal(out[e], solo)
+                        and torch.equal(ov[e], ov_solo)):
+                    raise AssertionError(f"{label} {r}: member {e} differs "
+                                         "from its single-member launch")
+            routes[r] = f"{E} members equal their single-member launches"
+        report[str(dtype)] = {
+            "members": E, "nx": nx, "n_packets_per_member": n_p,
+            "K": spec.K, "sub_dt_over_dx": [float(v) / dx for v in sub_dt],
+            "march_max_abs_err": err, "rtol": rtol, "atol": atol,
+            "share_of_tolerance": share, "route_by_the_rule": route,
+            "routes_against_solo": routes,
+            "transpose_and_build_exact": True,
+            "members_equal_solo_launches_bit_for_bit": True,
+            "member_at_sub_dt_0_unchanged": True, "launches_per_call": 1}
+        del wins, inputs, got
+    return report
+
+
 def phase_kernels_vs_plain(dev):
     nx, n_p = 64, 2 ** 16
     L = 2.0 * np.pi
@@ -715,6 +846,7 @@ def phase_kernels_vs_plain(dev):
                            "dtypes": ["float32", "float64"]}
     report["build_windows"] = check_build_windows(dev)
     report["march_rays"] = check_march_rays(dev)
+    report["batched"] = check_batched_kernels(dev)
     emit("kernels_vs_plain", n_packets=n_p, nx=nx, **report)
 
 
@@ -780,6 +912,73 @@ def rays_card_vs_cpu(dev):
                 atol=RAYS_F64_ATOL)
 
 
+def ensemble_card_vs_cpu(dev, base, march):
+    """Two chunks of 5 flow steps of a 3-member ensemble in float64 on the
+    card and on the CPU, compared; member 0 is past its T from the start
+    and must keep its state bit for bit on both. march: whether the fused
+    march is engaged (one launch of the batched march and of the batched
+    window build a flow step on the card), else the per-stage stencil
+    path (no kernel)."""
+    cfgs = ens.sweep_configs(base, w0s=(2.0, 4.0, 8.0), ugs=(0.6,))
+    out = {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        s, es, carry0 = ens.setup_ensemble(cfgs, device=device,
+                                           dtype=torch.float64)
+        es = es.replace(T=np.concatenate([[0.0], es.T[1:]]))
+        before = read_launches()
+        carry, (px, pk, ts) = ens.run_ensemble_chunk(carry0, es, s, base, 2)
+        after = read_launches()
+        fs0, fs = carry0.flow_state, carry.flow_state
+        frozen = (all(torch.equal(getattr(fs, f)[0], getattr(fs0, f)[0])
+                      for f in ("qk", "rhs_m1", "rhs_m2"))
+                  and torch.equal(carry.packet_x[0], carry0.packet_x[0])
+                  and torch.equal(carry.packet_k[0], carry0.packet_k[0])
+                  and torch.equal(carry.prev_fields[0], carry0.prev_fields[0])
+                  and fs.t[0] == 0.0 and fs.step[0] == 0)
+        if not frozen:
+            raise AssertionError(f"ensemble {name}: the frozen member moved")
+        if not (fs.step[1:] == 10).all():
+            raise AssertionError(f"ensemble {name}: steps {fs.step}")
+        out[name] = (s, carry, px.cpu(), pk.cpu(), ts,
+                     {key: after[key] - before[key] for key in after})
+    (sg, cg, pxg, pkg, tsg, lg), (sc, cc, pxc, pkc, tsc, lc) = (out["cuda"],
+                                                              out["cpu"])
+    if sg.march != sc.march or (sg.march is not None) != march:
+        raise AssertionError("ensemble: march specs differ between card and "
+                             "CPU, or the march is (not) engaged")
+    torch.testing.assert_close(pxg, pxc, rtol=0, atol=1e-9)
+    torch.testing.assert_close(pkg, pkc, rtol=0, atol=1e-9)
+    if not torch.equal(tsg, tsc):
+        raise AssertionError("ensemble: times differ between card and CPU")
+    qg_, qc_ = cg.flow_state.qk.cpu(), cc.flow_state.qk
+    rel = float((qg_ - qc_).abs().max() / qc_.abs().max())
+    if not rel <= 1e-9:
+        raise AssertionError(f"ensemble: qk differs by {rel:.3e} (relative)")
+    if not float((pxc[1:, -1] - pxc[1:, 0]).abs().max()) > 0:
+        raise AssertionError("ensemble: packets did not move")
+    expected = dict.fromkeys(WRAPPERS, 0)
+    if march:
+        expected["march_batched"] = 10
+        window = ("build_windows_batched" if sg.march.fused_build
+                  else "transpose_batched")
+        expected[window] = 11
+    if lg != expected:
+        raise AssertionError(f"ensemble: card launches {lg}, expected "
+                             f"{expected}")
+    result = dict(members=3, nx=base.nx, n_packets=base.n_packets,
+                  flow_steps=10, frozen_member_bit_for_bit=True,
+                  launches_on_the_card=lg,
+                  max_abs_dx=float((pxg - pxc).abs().max()),
+                  max_abs_dk=float((pkg - pkc).abs().max()),
+                  max_rel_dqk=rel)
+    if not march:
+        return result
+    ov_g, ov_c = cg.overflow.cpu().tolist(), cc.overflow.tolist()
+    if ov_g != ov_c or max(ov_g) != 0:
+        raise AssertionError(f"ensemble overflow card {ov_g}, CPU {ov_c}")
+    return dict(result, overflow=ov_g, margin=sg.march.margin)
+
+
 def phase_path_vs_cpu(dev):
     small = dict(nx=64, n_packets=4096, window_min_np=1, T_Fr_days=20.0,
                  packet_delay_days=0.05, packet_steps_per_save=5)
@@ -806,8 +1005,12 @@ def phase_path_vs_cpu(dev):
             raise AssertionError(f"per-stage {branch}: wrong branch taken")
         if read_launches() != before:
             raise AssertionError(f"per-stage {branch} launched a kernel")
+    ensemble = {
+        "march": ensemble_card_vs_cpu(dev, CoupledConfig(**small), True),
+        "stencil": ensemble_card_vs_cpu(
+            dev, CoupledConfig(**dict(small, window_min_np=65536)), False)}
     emit("path_vs_cpu", **two, one_layer=one, march_rays=rays_card_vs_cpu(dev),
-         per_stage=per_stage)
+         per_stage=per_stage, ensemble=ensemble)
 
 
 # ---------------------------------------------------------------------------
@@ -1848,6 +2051,421 @@ def phase_driver_reference_config(tmp, main_qg1):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the ensemble sweep at full width
+# ---------------------------------------------------------------------------
+
+# Run I of the JAX package's science runs (runs/run_tpu_sweep_b2000.py:
+# 46-57): the 12 members of the reference's 20-config sweep with U_g > 0.4,
+# numbered as in parameters.txt, 256^2 with 2^14 packets each, log-binned
+# omega histograms, a PV frame every 4 chunks; with the cuts of
+# ENSEMBLE_CUTS.
+ENSEMBLE_IDS = [i for i, (_, ug) in enumerate(drivers.DEFAULT_SWEEP)
+                if ug > 0.4]
+ENSEMBLE_SWEEP = [drivers.DEFAULT_SWEEP[i] for i in ENSEMBLE_IDS]
+ENSEMBLE = dict(nx=256, Npackets=2 ** 14, f=3.0, Cg=1.0, r_drag=0.0,
+                forcing_strength=0.0, steps_per_save=100,
+                packet_steps_per_save=5, packet_delay_days=0.01,
+                omega_hist_bins=400, omega_hist_log=True,
+                omega_hist_max_factor=64.0, window_min_np=2 ** 13,
+                pv_every=4, max_margin_retries=4)
+ENSEMBLE_T = 2000.0
+ENSEMBLE_STEPS = 300
+ENSEMBLE_CUTS = {
+    "steps_per_save": "100, not 1000: a chunk is 100 flow steps",
+    "packet_delay_days": "0.01, not 1000: the packets move from the start",
+    "max_steps": "300 with checkpoint_every=2, not the horizon T = 2000 "
+                 "with checkpoint_every=40"}
+
+
+def run_ensemble_driver(base, max_steps, resume=False, **kw):
+    """run_sweep(ensemble=True) as Run I calls it, with the cuts. Returns
+    (carry, RunDirs, host seconds, CUDA-event seconds) of the whole
+    call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    carry, rds = drivers.run_sweep(
+        ENSEMBLE_SWEEP, base_dir=str(base), ensemble=True,
+        member_ids=ENSEMBLE_IDS, T_member=lambda w0, ug: ENSEMBLE_T,
+        max_steps=max_steps, checkpoint_every=2, resume=resume,
+        verbose=False, **ENSEMBLE, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return (carry, rds, time.perf_counter() - t0,
+            start.elapsed_time(end) / 1e3)
+
+
+def member_files(base, name):
+    """Each member's `name` file of an ensemble sweep, as bytes."""
+    return [(Path(base) / f"run-{i}" / f"{name}.bin").read_bytes()
+            for i in ENSEMBLE_IDS]
+
+
+def timed_chunks(chunk, carry, n_chunks):
+    """n_chunks calls of chunk(carry) -> (carry, saves), each followed by
+    the driver's per-chunk reads: whether the flow is finite, and the
+    overflow counts, which are then set to 0. Returns (carry, host seconds,
+    CUDA-event seconds, the largest overflow)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    overflow = 0
+    for _ in range(n_chunks):
+        carry, _ = chunk(carry)
+        if not bool(torch.isfinite(carry.flow_state.qk).all()):
+            raise AssertionError("the flow blew up")
+        overflow = max(overflow, int(carry.overflow.max()))
+        carry = dataclasses.replace(carry,
+                                    overflow=torch.zeros_like(carry.overflow))
+    end.record()
+    torch.cuda.synchronize()
+    return (carry, time.perf_counter() - t0, start.elapsed_time(end) / 1e3,
+            overflow)
+
+
+def ensemble_kernel_rows(carry, s, es, cfg):
+    """The three batched kernels on the ensemble path's final carry: the
+    inputs of its next flow step as lockstep_step forms them. Each held
+    against its plain version, timed beside it and beside one PyTorch call
+    that computes the same, with the bound of the bytes (and, for the
+    march, the operations) the function must move."""
+    spec = s.march
+    dtype, item = carry.packet_x.dtype, carry.packet_x.element_size()
+    E, _, n_p = carry.packet_x.shape
+    qp = s.qg_params
+    state2 = qg.qg_step(carry.flow_state, s.grid, qp, dt=es.dt)
+    fields2 = flow_from_qk(state2.qk, s.grid, qp.Kd2,
+                           n_fields=spec.nf).fields.contiguous()
+    W = mw.build_margin_windows(fields2, spec).contiguous()  # (E, K, ncells)
+    win2 = mw.transpose_batched_cuda(W)
+    x, k = carry.packet_x, carry.packet_k
+    oi, oj = mw.packet_cells(x[:, 0], x[:, 1], spec)
+    sub_dt = torch.as_tensor(es.dt / cfg.n_substeps, dtype=torch.float64,
+                             device=x.device)
+    inputs = (carry.prev_win, win2, torch.cat([x, k], dim=1), oi, oj)
+    err, _, ovmax, _, route = compare_march(
+        inputs, sub_dt, spec, F32_RTOL, F32_ATOL,
+        "batched march on the ensemble path",
+        kernel=mw.march_gathered_batched_cuda,
+        plain=mw.march_gathered_batched_reference)
+    if ovmax != 0:
+        raise AssertionError(f"batched march overflow {ovmax}")
+    march = lambda: mw.march_gathered_batched_cuda(*inputs, sub_dt, spec)
+    k1_ms, k1_single = cuda_ms_run(march), cuda_ms(march, 25)
+    k1_plain = cuda_ms(
+        lambda: mw.march_gathered_batched_reference(*inputs, sub_dt, spec), 3)
+    # every row some packet of a member reads, once per member, and per
+    # packet xk, oi, oj in and xk, overflow out
+    occupied = [int(torch.unique(oi[e].long() * spec.ny + oj[e]).numel())
+                for e in range(E)]
+    k1_bytes = (sum(occupied) * 2 * spec.K * item
+                + E * n_p * (4 * item + 8 + 4 * item + 4))
+    k1_flops = E * n_p * march_flops_per_packet(spec)
+    k1_by_bytes = k1_bytes / HBM_BYTES_PER_S * 1e3
+    k1_by_ops = k1_flops / FLOPS_PER_S[dtype] * 1e3
+
+    if not torch.equal(win2, mw.transpose_batched_reference(W)):
+        raise AssertionError("transpose_batched differs on the ensemble path")
+    transpose = lambda: mw.transpose_batched_cuda(W)
+    k2_ms, k2_single = cuda_ms_run(transpose), cuda_ms(transpose, 25)
+    k2_plain = cuda_ms_run(lambda: mw.transpose_batched_reference(W), 5)
+    k2_lib = cuda_ms_run(lambda: W.transpose(-1, -2).contiguous(), 10)
+    k2_bytes = 2 * W.numel() * item
+    del W
+
+    got = mw.build_windows_batched_cuda(fields2, spec)
+    if not (torch.equal(got, mw.build_windows_batched_reference(fields2, spec))
+            and torch.equal(got, win2)):
+        raise AssertionError("build_windows_batched differs on the ensemble "
+                             "path from its plain version or the two-pass "
+                             "route")
+    # the one library copy that does the same: the padded fields' shifted
+    # views (E, nf, SW, SW, nx, ny), permuted to rows, made contiguous
+    shifted = mw._shifted_views(fields2, spec)
+    library = lambda: shifted.permute(0, 4, 5, 1, 2, 3).contiguous()
+    if not torch.equal(library().reshape(got.shape), got):
+        raise AssertionError("the library copy computes another function")
+    build = lambda: mw.build_windows_batched_cuda(fields2, spec)
+    k3_ms, k3_single = cuda_ms_run(build), cuda_ms(build, 25)
+    k3_plain = cuda_ms_run(
+        lambda: mw.build_windows_batched_reference(fields2, spec), 5)
+    k3_lib = cuda_ms_run(library, 10)
+    k3_bytes = (got.numel() + fields2.numel()) * item
+    out_shape = tuple(got.shape)
+    del got, shifted, win2
+
+    def row(name, err, ms, plain, by_bytes, by_ops, lib, single, **extra):
+        return {"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": max(by_bytes, by_ops),
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                "library_ms": lib, "single_launch_ms": single, **extra}
+
+    rows = [
+        row("march_batched", err, k1_ms, k1_plain, k1_by_bytes, k1_by_ops,
+            None, k1_single, march_route=route),
+        row("transpose_batched", 0.0, k2_ms, k2_plain,
+            k2_bytes / HBM_BYTES_PER_S * 1e3, 0.0, k2_lib, k2_single),
+        row("build_windows_batched", 0.0, k3_ms, k3_plain,
+            k3_bytes / HBM_BYTES_PER_S * 1e3, 0.0, k3_lib, k3_single)]
+    bounds = {
+        "march_batched": {
+            "shape": f"{E} members: win1, win2 ({E}, {spec.nx * spec.ny}, "
+                     f"{spec.K}) {dtype} read by cell, one row of 2K = "
+                     f"{2 * spec.K} values an occupied cell of a member, "
+                     f"xk ({E}, 4, {n_p}), sub_dt ({E},) float64",
+            "occupied_cells_by_member": occupied,
+            "cells_per_member": spec.nx * spec.ny, "bytes": k1_bytes,
+            "flops": k1_flops, "ms_by_bytes": k1_by_bytes,
+            "ms_by_operations": k1_by_ops,
+            "tolerance": {"rtol": F32_RTOL, "atol": F32_ATOL}},
+        "transpose_batched": {
+            "shape": f"({E}, {spec.K}, {spec.nx * spec.ny}) {dtype}",
+            "bytes": k2_bytes, "flops": 0,
+            "ms_by_bytes": k2_bytes / HBM_BYTES_PER_S * 1e3,
+            "ms_by_operations": 0.0, "tolerance": "exact"},
+        "build_windows_batched": {
+            "shape": f"F {tuple(fields2.shape)} -> {out_shape} {dtype}",
+            "bytes": k3_bytes, "flops": 0,
+            "ms_by_bytes": k3_bytes / HBM_BYTES_PER_S * 1e3,
+            "ms_by_operations": 0.0, "tolerance": "exact"}}
+    return rows, bounds
+
+
+def phase_ensemble_path(tmp):
+    """Run I's ensemble sweep on the card through run_sweep(ensemble=True),
+    the launch counts set to 0 just before and read just after: 300 flow
+    steps of 12 members, one launch of the batched march and of the
+    batched transpose a flow step for all members. Then 200 steps resumed
+    from their checkpoint to 300 (histograms and packets equal bit for
+    bit); 100 steps with the one-pass window build (the batched build
+    kernel; histograms equal the two-pass run's); the ensemble's chunks
+    alone (no files); and the same 12 members for the same 300 steps one
+    after another through the solo run_coupled_chunk."""
+    E, n_p = len(ENSEMBLE_SWEEP), ENSEMBLE["Npackets"]
+    steps = ENSEMBLE_STEPS
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    carry, rds, host_s, event_s = run_ensemble_driver(tmp / "ensemble", steps)
+    launches = read_launches()
+    routes = dict(mw.march_gathered_batched_cuda.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = runmeta.RunDir(tmp / "ensemble").read_metrics()
+    n_chunks = steps // ENSEMBLE["steps_per_save"]
+    if len(metrics) != n_chunks or any(
+            "march_overflow" in m or "blow_up" in m for m in metrics):
+        raise AssertionError(f"ensemble_path metrics: {metrics}")
+    if [m["members_live"] for m in metrics] != [E] * n_chunks:
+        raise AssertionError(f"members live: {metrics}")
+    expected = dict.fromkeys(WRAPPERS, 0)
+    expected["march_batched"] = steps
+    expected["transpose_batched"] = steps + 1   # and the first carry's
+    if launches != expected or sum(routes.values()) != steps:
+        raise AssertionError(f"ensemble_path: launch counts {launches}, "
+                             f"routes {routes}, expected {expected}")
+    overflow = carry.overflow.cpu().tolist()
+    if max(overflow) != 0 or not (carry.flow_state.step == steps).all():
+        raise AssertionError(f"ensemble_path: overflow {overflow}, steps "
+                             f"{carry.flow_state.step}")
+    n_bins = ENSEMBLE["omega_hist_bins"] + 1
+    hists = [np.frombuffer(b).reshape(-1, n_bins)
+             for b in member_files(tmp / "ensemble", "omega_hist")]
+    frames = 1 + steps // ENSEMBLE["packet_steps_per_save"]
+    if any(h.shape[0] != frames or not (h.sum(axis=1) == n_p).all()
+           for h in hists):
+        raise AssertionError("ensemble_path: omega_hist frames or sums")
+    om = torch.sqrt(9.0 + (carry.packet_k ** 2).sum(1)) / 3.0   # (E, Np)
+    w0s = torch.tensor([w0 for w0, _ in ENSEMBLE_SWEEP], device=om.device)
+    spread = (om.std(dim=1) / w0s).cpu().tolist()
+    if not (torch.isfinite(carry.packet_x).all() and min(spread) > 1e-5):
+        raise AssertionError(f"ensemble_path: omega/f did not spread "
+                             f"({spread}) or packets are not finite")
+    rate = median_rate(metrics[1:])
+
+    # resume: 200 steps, then from their checkpoint to 300
+    _, _, host200, _ = run_ensemble_driver(tmp / "resume", 200)
+    resumed, _, host_resume, _ = run_ensemble_driver(tmp / "resume", steps,
+                                                     resume=True)
+    for name in ("omega_hist", "packet_time", "packet_snap_x",
+                 "packet_snap_k", "packet_snap_time"):
+        if member_files(tmp / "resume", name) != member_files(
+                tmp / "ensemble", name):
+            raise AssertionError(f"resumed {name} differs from the "
+                                 "uninterrupted run's")
+    if not (torch.equal(resumed.packet_x, carry.packet_x)
+            and torch.equal(resumed.packet_k, carry.packet_k)):
+        raise AssertionError("resumed packets differ from the uninterrupted "
+                             "run's")
+    del resumed
+
+    # the one-pass window build: the batched build kernel in place of the
+    # shifted copies and the batched transpose, the same windows
+    fused_steps = ENSEMBLE["steps_per_save"]
+    reset_launches()
+    fused, _, _, _ = run_ensemble_driver(tmp / "fused", fused_steps,
+                                         march_fused_build=True)
+    launches_fused = read_launches()
+    expected_fused = dict.fromkeys(WRAPPERS, 0)
+    expected_fused["march_batched"] = fused_steps
+    expected_fused["build_windows_batched"] = fused_steps + 1
+    if launches_fused != expected_fused:
+        raise AssertionError(f"ensemble fused build: launch counts "
+                             f"{launches_fused}, expected {expected_fused}")
+    fused_frames = 1 + fused_steps // ENSEMBLE["packet_steps_per_save"]
+    for h, b in zip(hists, member_files(tmp / "fused", "omega_hist")):
+        if not np.array_equal(np.frombuffer(b).reshape(-1, n_bins),
+                              h[:fused_frames]):
+            raise AssertionError("the one-pass build's histograms differ "
+                                 "from the two-pass run's")
+    del fused
+
+    # the chunks alone, without files: the ensemble, then the members one
+    # after another through the solo chunk, each with the driver's
+    # histogram and per-chunk reads
+    cfgs = [CoupledConfig(
+        nx=ENSEMBLE["nx"], n_packets=n_p, near_inertial_factor=w0, U_g=ug,
+        packet_delay_days=ENSEMBLE["packet_delay_days"], f=3.0, Cg=1.0,
+        r_drag=0.0, forcing_strength=0.0,
+        steps_per_save=ENSEMBLE["steps_per_save"],
+        packet_steps_per_save=ENSEMBLE["packet_steps_per_save"],
+        window_min_np=ENSEMBLE["window_min_np"])
+        for w0, ug in ENSEMBLE_SWEEP]
+    spec = OmegaHistSpec(n_bins=ENSEMBLE["omega_hist_bins"], omega_max=1.0,
+                         f=3.0, Cg=1.0, omega_min=3.0, log_bins=True)
+    wmax = [ENSEMBLE["omega_hist_max_factor"] * w0 * 3.0
+            for w0, _ in ENSEMBLE_SWEEP]
+    n_saves = ENSEMBLE["steps_per_save"] // ENSEMBLE["packet_steps_per_save"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    s, es, cb = ens.setup_ensemble(cfgs)
+    es = es.replace(T=np.full(E, ENSEMBLE_T))
+    wdev = torch.tensor(wmax, dtype=torch.float32, device=cb.packet_x.device)
+    alone, alone_host, alone_event, alone_ov = timed_chunks(
+        lambda c: ens.run_ensemble_chunk(
+            c, es, s, cfgs[0], n_saves,
+            diag_fn=lambda cc, i: omega_hist_counts(cc.packet_k, spec,
+                                                    omega_max=wdev[i])),
+        cb, n_chunks)
+    launches_alone = read_launches()
+    peak_alone = torch.cuda.max_memory_allocated()
+    if not (torch.equal(alone.packet_x, carry.packet_x)
+            and torch.equal(alone.packet_k, carry.packet_k)):
+        raise AssertionError("the ensemble's chunks alone differ from the "
+                             "driver's run")
+    del alone, cb
+
+    # warm-up of the solo path (its cuFFT plans), then the members in turn
+    s0, c0 = setup_coupled(cfgs[0])
+    run_coupled_chunk(c0, s0, cfgs[0], 1)
+    del s0, c0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seq_host = seq_event = 0.0
+    seq_ov, dx, dk = 0, [], []
+    for e, cfg in enumerate(cfgs):
+        s_e, c_e = setup_coupled(cfg)
+        w_e = torch.tensor(wmax[e], dtype=torch.float32,
+                           device=c_e.packet_x.device)
+        c_e, h, d, o = timed_chunks(
+            lambda c: run_coupled_chunk(
+                c, s_e, cfg, n_saves,
+                diag_fn=lambda cc: omega_hist_counts(cc.packet_k, spec,
+                                                     omega_max=w_e)),
+            c_e, n_chunks)
+        seq_host, seq_event, seq_ov = seq_host + h, seq_event + d, max(seq_ov,
+                                                                       o)
+        dx.append(float((c_e.packet_x - carry.packet_x[e]).abs().max()))
+        dk.append(float((c_e.packet_k - carry.packet_k[e]).abs().max()))
+        del s_e, c_e
+    launches_seq = read_launches()
+    peak_seq = torch.cuda.max_memory_allocated()
+    if alone_ov != 0 or seq_ov != 0:
+        raise AssertionError(f"overflow: ensemble {alone_ov}, sequential "
+                             f"{seq_ov}")
+    if launches_seq["march"] != E * steps or \
+            launches_seq["transpose"] != E * (steps + 1):
+        raise AssertionError(f"sequential launches {launches_seq}")
+    if not all(np.isfinite(dx + dk)):
+        raise AssertionError("the sequential packets are not finite")
+
+    member_steps = E * steps
+
+    def rates(seconds):
+        return {"member_steps_per_s": member_steps / seconds,
+                "packet_steps_per_s": member_steps * n_p / seconds}
+
+    rows, bounds = ensemble_kernel_rows(carry, s, es, cfgs[0])
+    emit("ensemble_path", source="runs/run_tpu_sweep_b2000.py:46-57 (Run I)",
+         members=E, member_ids=ENSEMBLE_IDS, nx=ENSEMBLE["nx"],
+         n_packets_per_member=n_p, dtype="float32", cuts=ENSEMBLE_CUTS,
+         margin=s.march.margin, K=s.march.K, flow_steps=steps,
+         chunks=n_chunks,
+         ensemble={
+             "launches": launches, "march_launches_by_route": routes,
+             "launches_per_ensemble_step": {
+                 "march_batched": launches["march_batched"] / steps,
+                 "transpose_batched": (launches["transpose_batched"] - 1)
+                 / steps},
+             "host_seconds": host_s, "cuda_event_seconds": event_s,
+             "chunk_seconds": sum(m["wall_s"] for m in metrics),
+             "packet_steps_per_sec_chunks_2_to_3": rate,
+             "member_steps_per_sec_chunks_2_to_3": rate / n_p,
+             "packet_steps_per_sec_by_chunk": [m["packet_steps_per_sec"]
+                                               for m in metrics],
+             "peak_memory_bytes": peak, "overflow": overflow,
+             "omega_hist_frames": frames,
+             "omega_hist_overflow_slot": [float(h[:, -1].sum())
+                                          for h in hists],
+             "omega_over_f_std_over_w0": spread},
+         resume={"host_seconds_200_steps": host200,
+                 "host_seconds_resumed_to_300": host_resume,
+                 "omega_hist_and_snapshots_equal": True,
+                 "packets_equal_bit_for_bit": True},
+         fused_build={"flow_steps": fused_steps, "launches": launches_fused,
+                      "omega_hist_equal_to_two_pass": True},
+         chunks_alone={
+             "ensemble": {"host_seconds": alone_host,
+                          "cuda_event_seconds": alone_event,
+                          **rates(alone_host),
+                          "launches": launches_alone,
+                          "launches_per_ensemble_step": {
+                              "march_batched":
+                                  launches_alone["march_batched"] / steps,
+                              "transpose_batched":
+                                  (launches_alone["transpose_batched"] - 1)
+                                  / steps},
+                          "peak_memory_bytes": peak_alone,
+                          "overflow": alone_ov,
+                          "equal_to_the_driver_run_bit_for_bit": True},
+             "sequential": {"host_seconds": seq_host,
+                            "cuda_event_seconds": seq_event,
+                            **rates(seq_host),
+                            "launches": launches_seq,
+                            "launches_per_ensemble_step": {
+                                "march": launches_seq["march"] / steps,
+                                "transpose":
+                                    (launches_seq["transpose"] - E) / steps},
+                            "peak_memory_bytes": peak_seq,
+                            "overflow": seq_ov},
+             "ensemble_speedup_host": seq_host / alone_host,
+             "ensemble_speedup_cuda_events": seq_event / alone_event},
+         ensemble_minus_solo_float32={
+             "max_abs_dx_by_member": dx, "max_abs_dk_by_member": dk,
+             "max_abs_dx": max(dx), "max_abs_dk": max(dk),
+             "why": "batched and single cuFFT plans round differently; the "
+                    "kernels' members equal single launches bit for bit "
+                    "(kernels_vs_plain)"})
+    by_path = {"ensemble_path": launches,
+               "ensemble_path_fused_build": launches_fused}
+    return rows, bounds, by_path, routes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -1878,10 +2496,14 @@ def main():
         phase_driver_cli(tmp)
         launches_driver = phase_driver_path(tmp, main)
         launches_ref = phase_driver_reference_config(tmp, main_qg1)
+        rows_ens, bounds_ens, launches_ens, routes_ens = \
+            phase_ensemble_path(tmp)
+    rows += rows_ens
+    bounds.update(bounds_ens)
     # launches: over the main paths, each counted from 0
     by_path = {"main_path": launches_two, "main_path_qg1": launches_one,
                "frozen_path": launches_rays, "driver_path": launches_driver,
-               "driver_reference_config": launches_ref}
+               "driver_reference_config": launches_ref, **launches_ens}
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
@@ -1889,6 +2511,8 @@ def main():
         if row["name"] == "march":
             row["launches_by_route_by_path"] = {"main_path": routes_two,
                                                 "main_path_qg1": routes_one}
+        if row["name"] == "march_batched":
+            row["launches_by_route_by_path"] = {"ensemble_path": routes_ens}
         if row["launches"] < 1:
             raise AssertionError(f"no main path launched {row['name']}")
     emit("kernel_bounds", hbm_bytes_per_s=HBM_BYTES_PER_S,

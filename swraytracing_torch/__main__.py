@@ -11,8 +11,9 @@ selects the precision:
 
 Runs go to the CUDA device and fail when there is none, unless
 `--device cpu` is given. `sweep` runs the reference's 20-config (w0, U_g)
-table in-process, one run after another; `--ensemble` (one program for
-all members) is not ported yet. `analyze` needs matplotlib.
+table in-process, one run after another, or with `--ensemble` (one-layer
+model only) all members in one program with on-device omega histograms
+instead of packet frames. `analyze` needs matplotlib.
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ def main(argv=None):
     p.add_argument("--base-dir", default="sweep")
     p.add_argument("--model", choices=("qgsw", "qg2"), default="qgsw")
     p.add_argument("--ensemble", action="store_true",
-                   help="all members in one program (not ported yet: "
-                        "ROADMAP A11)")
+                   help="all members in ONE program (on-device omega "
+                        "histograms instead of frames)")
     p.add_argument("--hist-bins", type=int, default=300)
 
     p = sub.add_parser("analyze", help="e(omega) + trajectory figures")
@@ -86,11 +87,20 @@ def main(argv=None):
     elif args.cmd == "sweep":
         from . import drivers
 
-        fn = (drivers.qgsw_raytrace if args.model == "qgsw"
-              else drivers.qg2layersw_raytrace)
-        drivers.run_sweep(base_dir=args.base_dir, driver=fn,
-                          ensemble=args.ensemble, nx=args.nx,
-                          Npackets=args.packets, **_run_kwargs(args))
+        if args.ensemble:
+            if args.model != "qgsw":
+                ap.error("--ensemble supports only --model qgsw (the "
+                         "vmapped ensemble runs the one-layer physics); "
+                         "run a qg2 sweep without --ensemble")
+            drivers.run_sweep(base_dir=args.base_dir, ensemble=True,
+                              nx=args.nx, Npackets=args.packets,
+                              omega_hist_bins=args.hist_bins,
+                              resume=args.resume, **_run_kwargs(args))
+        else:
+            fn = (drivers.qgsw_raytrace if args.model == "qgsw"
+                  else drivers.qg2layersw_raytrace)
+            drivers.run_sweep(base_dir=args.base_dir, driver=fn, nx=args.nx,
+                              Npackets=args.packets, **_run_kwargs(args))
     elif args.cmd == "analyze":
         import os
 

@@ -63,27 +63,34 @@ def omega_hist_counts(pk: torch.Tensor, spec: OmegaHistSpec,
     """Histogram of intrinsic frequency omega(k) over the packet batch.
 
     Args:
-      pk: (2, Np) coordinate-first wavenumbers (the carry layout).
+      pk: (2, Np) coordinate-first wavenumbers (the carry layout), or an
+        ensemble's (E, 2, Np), one histogram per member.
       spec: OmegaHistSpec.
-      omega_max: optional override of spec.omega_max, a float or a 0-dim
-        tensor on pk's device (read on the device, never on the host).
+      omega_max: optional override of spec.omega_max: a float, or a tensor
+        on pk's device (read on the device, never on the host), 0-dim, or
+        (E,) with each member's own scale.
     Returns:
       (n_bins + 1,) counts on pk's device, dtype of pk; slot n_bins is the
-      overflow count (omega >= omega_max).
+      overflow count (omega >= omega_max). (E, n_bins + 1) for members,
+      row e equal to omega_hist_counts(pk[e], spec, omega_max[e]).
 
-    Every division is by a 0-dim tensor: on a CUDA tensor PyTorch turns a
+    Every division is by a tensor: on a CUDA tensor PyTorch turns a
     division by a Python scalar into a multiplication by its reciprocal,
-    which can put a sample on a bin edge into the neighbouring bin.
+    which can put a sample on a bin edge into the neighbouring bin. A
+    member's arithmetic is the single histogram's, element for element.
     """
-    om = torch.sqrt(spec.f**2
-                    + spec.Cg**2 * (pk[0] * pk[0] + pk[1] * pk[1]))
+    om = torch.sqrt(spec.f**2 + spec.Cg**2 * (pk[..., 0, :] * pk[..., 0, :]
+                                              + pk[..., 1, :] * pk[..., 1, :]))
     wmax = spec.omega_max if omega_max is None else omega_max
     # a static scale is divided on the host in float64 and a tensor on the
     # device, as the JAX package does with a static or a traced omega_max
     static = not isinstance(wmax, torch.Tensor)
 
     def scalar(value):
-        return torch.as_tensor(value, dtype=pk.dtype, device=pk.device)
+        """A host scale as a 0-dim tensor, a device scale (E,) as (E, 1)
+        beside its members' samples."""
+        t = torch.as_tensor(value, dtype=pk.dtype, device=pk.device)
+        return t.reshape(*t.shape, 1) if t.dim() else t
 
     if spec.log_bins:
         # idx = floor(log(om/omega_min) / dlog); om >= f >= omega_min
@@ -96,5 +103,11 @@ def omega_hist_counts(pk: torch.Tensor, spec: OmegaHistSpec,
         nb = spec.n_bins if static else om.new_full((), spec.n_bins)
         idx = torch.floor(om / scalar(wmax / nb))
     idx = idx.clamp(0, spec.n_bins).to(torch.int64)   # top = overflow slot
-    counts = pk.new_zeros(spec.n_bins + 1)
+    n = spec.n_bins + 1
+    if om.dim() == 2:   # members: one row of counts each
+        idx = idx + torch.arange(om.shape[0], device=om.device)[:, None] * n
+        counts = pk.new_zeros(om.shape[0] * n)
+        return counts.index_add_(0, idx.reshape(-1),
+                                 torch.ones_like(om).reshape(-1)).reshape(-1, n)
+    counts = pk.new_zeros(n)
     return counts.index_add_(0, idx, torch.ones_like(om))

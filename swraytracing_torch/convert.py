@@ -10,7 +10,11 @@ names,
 
 where "prev_win" and "overflow" may be None (or absent). The flow state is
 the one-layer solver's when "qk" has rank 2 (nx, nky) and the two-layer
-solver's when it has rank 3 (2, nx, nky).
+solver's when it has rank 3 (2, nx, nky), unless "t" is a 1-d array: then
+it is an ensemble's one-layer state, (E, nx, nky) spectra and the members'
+times and step counts (parallel/ensemble.py), and `ensemble_from_numpy`
+turns the JAX package's EnsembleSetup fields and batched carry into the
+port's.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from .models.qg import QGParams, QGState
 from .models.qg2 import QG2Operators, QG2State
 
 __all__ = ["carry_from_numpy", "carry_to_numpy", "operators_from_numpy",
-           "qg_params_from_numpy"]
+           "qg_params_from_numpy", "ensemble_from_numpy"]
 
 
 def carry_from_numpy(tree: dict, device=None,
@@ -47,13 +51,22 @@ def carry_from_numpy(tree: dict, device=None,
 
     fs = tree["flow_state"]
     rank = np.ndim(fs["qk"])
-    if rank not in (2, 3):
-        raise ValueError("flow_state['qk'] must be (nx, nky) or (2, nx, nky); "
-                         f"got rank {rank}")
-    State = QGState if rank == 2 else QG2State
-    state = State(qk=spec(fs["qk"]), rhs_m1=spec(fs["rhs_m1"]),
-                  rhs_m2=spec(fs["rhs_m2"]), t=float(fs["t"]),
-                  step=int(fs["step"]))
+    if np.ndim(fs["t"]) == 1:    # an ensemble's members
+        if rank != 3:
+            raise ValueError("an ensemble's flow_state['qk'] must be "
+                             f"(E, nx, nky); got rank {rank}")
+        state = QGState(qk=spec(fs["qk"]), rhs_m1=spec(fs["rhs_m1"]),
+                        rhs_m2=spec(fs["rhs_m2"]),
+                        t=np.array(fs["t"], dtype=np.float64),
+                        step=np.array(fs["step"], dtype=np.int64))
+    else:
+        if rank not in (2, 3):
+            raise ValueError("flow_state['qk'] must be (nx, nky) or "
+                             f"(2, nx, nky); got rank {rank}")
+        State = QGState if rank == 2 else QG2State
+        state = State(qk=spec(fs["qk"]), rhs_m1=spec(fs["rhs_m1"]),
+                      rhs_m2=spec(fs["rhs_m2"]), t=float(fs["t"]),
+                      step=int(fs["step"]))
     ov = tree.get("overflow")
     if ov is not None:
         ov = torch.tensor(np.asarray(ov), dtype=torch.int32, device=device)
@@ -71,10 +84,14 @@ def carry_to_numpy(carry: CoupledCarry) -> dict:
         return None if t is None else t.detach().cpu().numpy()
 
     fs = carry.flow_state
+    members = isinstance(fs.t, np.ndarray)
     return {
         "flow_state": {"qk": arr(fs.qk), "rhs_m1": arr(fs.rhs_m1),
-                       "rhs_m2": arr(fs.rhs_m2), "t": np.float64(fs.t),
-                       "step": np.int32(fs.step)},
+                       "rhs_m2": arr(fs.rhs_m2),
+                       "t": (np.array(fs.t, np.float64) if members
+                             else np.float64(fs.t)),
+                       "step": (np.array(fs.step, np.int32) if members
+                                else np.int32(fs.step))},
         "packet_x": arr(carry.packet_x),
         "packet_k": arr(carry.packet_k),
         "prev_fields": arr(carry.prev_fields),
@@ -106,3 +123,16 @@ def qg_params_from_numpy(Kd2, dt, forcing=None, filter=None, *, beta=0.0,
                     dt=float(dt), forcing=host(forcing), filter=host(filter),
                     dealias=bool(dealias),
                     reference_quirks=bool(reference_quirks))
+
+
+def ensemble_from_numpy(es: dict, tree: dict, device=None,
+                        dtype: torch.dtype = torch.float32):
+    """The port's (EnsembleSetup, batched carry) from numpy: `es` holds the
+    JAX package's EnsembleSetup fields ("dt", "packet_delay", "T", "U0",
+    each (E,)), `tree` the batched carry as carry_from_numpy takes it
+    (t and step (E,)). The parameters stay float64 on the host."""
+    from .parallel.ensemble import EnsembleSetup
+
+    setup = EnsembleSetup(**{key: np.array(es[key], dtype=np.float64)
+                             for key in ("dt", "packet_delay", "T", "U0")})
+    return setup, carry_from_numpy(tree, device=device, dtype=dtype)

@@ -20,8 +20,11 @@ none; name "cpu" to run on the CPU) and `dtype` (float32 by default).
 
 `run_sweep` replaces the SLURM job array (runqgsw_raytrace.sbatch:10 +
 parameters.txt): a parameter table is executed as successive runs in one
-process, each with its own run directory. The ensemble sweep (all members
-in one program) is not ported yet (ROADMAP A11).
+process, each with its own run directory, or with ensemble=True as one
+program that advances every member at once (parallel/ensemble.py), each
+member writing its own run directory of on-device omega histograms. The
+ensemble sharded over several devices (`mesh=`) is not ported yet
+(ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -502,18 +505,319 @@ def run_sweep(sweep=None, base_dir="sweep", driver=qgsw_raytrace,
               ensemble=False, **common_kwargs):
     """Execute a (w0, U_g) parameter sweep — the reference's 20-task
     SLURM array (runqgsw_raytrace.sbatch:10,17-20) in one process, one
-    run directory per config: successive driver() calls, each given
-    common_kwargs (device and dtype included).
+    run directory per config.
 
-    ensemble=True (all members in one program) is not ported yet and
-    raises NotImplementedError."""
+    ensemble=False: successive driver() calls, each given common_kwargs
+    (device and dtype included). Returns [(run_dir, w0, U_g)].
+    ensemble=True: ALL members advance in ONE program
+    (parallel/ensemble.py: the fused march's kernels launch once per step
+    for all members, members freeze at their own T), with per-member
+    on-device omega histograms as the science output; extra kwargs are
+    CoupledConfig overrides plus the knobs of _run_sweep_ensemble.
+    Returns (final batched carry, [RunDir per member])."""
     if ensemble:
-        raise NotImplementedError(
-            "run_sweep(ensemble=True), the ensemble sweep in one program, "
-            "is not ported yet: ROADMAP item A11")
+        return _run_sweep_ensemble(sweep or DEFAULT_SWEEP, base_dir,
+                                   **common_kwargs)
     results = []
     for i, (w0, ug) in enumerate(sweep or DEFAULT_SWEEP):
         out = f"{base_dir}/run-{i}"
         driver(near_inertial_factor=w0, U_g=ug, out_dir=out, **common_kwargs)
         results.append((out, w0, ug))
     return results
+
+
+def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
+                        T_Fr_days=6000.0, packet_delay_days=1000.0,
+                        f=3.0, Cg=1.0, omega_hist_bins=300,
+                        omega_hist_log=False, omega_hist_max_factor=2.0,
+                        T_member=None, max_steps=None,
+                        checkpoint_every=0, resume=False, mesh=None,
+                        verbose=True, max_margin_retries=2,
+                        member_ids=None, pv_every=0, init_from=None,
+                        device=None, dtype: torch.dtype = torch.float32,
+                        **cfg_overrides):
+    """One-program sweep: every (w0, U_g) member advances in one chunk of
+    run_ensemble_chunk; each member writes its own reference-layout run
+    directory with per-save omega-histogram frames (the science
+    statistic), a run.log, and a final packet snapshot. The directories
+    equal the JAX package's file by file.
+
+    T_member: optional (w0, ug) -> simulation-time horizon per member,
+    overriding the setup-derived T. Members freeze bit for bit once their
+    own T is reached; histogram frames stop being written for frozen
+    members.
+
+    member_ids: run-directory indices for the members (default 0..E-1),
+    so that a sweep split into several programs numbers its directories
+    as parameters.txt does; the checkpoints are ckpt-g<first id>_*.npz.
+
+    omega_hist_log / omega_hist_max_factor: per-member histogram scale
+    omega_max_factor * w0 * f; with log bins the range is
+    [f, omega_max_factor * w0 * f] geomspaced (use a generous factor,
+    e.g. 64, so the high-omega wing is never cut).
+
+    pv_every: write each member's PV grid as a pv/pv_time frame every this
+    many chunks (0 = final only).
+
+    init_from: an ensemble checkpoint .npz whose member axis matches this
+    sweep, to SEED the initial carry (members continue from their
+    checkpointed t toward their possibly extended T) with a fresh frame
+    series from frame 1; resume=True instead continues this base_dir's
+    own series from its latest checkpoint.
+
+    mesh: the ensemble sharded over several devices is not ported yet
+    (ROADMAP A14) and raises NotImplementedError.
+
+    Host reads per chunk: the histogram rows and times, one bool per member
+    (is its flow finite), the overflow counts, and the PV grids when a
+    PV frame is due. `device` and `dtype` as the other drivers take them.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_sweep(ensemble=True, mesh=...), the ensemble sharded over "
+            "several devices, is not ported yet: ROADMAP item A14")
+    from .models.coupled import CoupledConfig
+    from .parallel.ensemble import setup_ensemble, run_ensemble_chunk
+    from .analysis.device_diag import OmegaHistSpec, omega_hist_counts
+
+    log = print if verbose else (lambda *_: None)
+    sweep = list(sweep)
+    cfgs = [CoupledConfig(nx=nx, n_packets=Npackets,
+                          near_inertial_factor=w0, U_g=ug,
+                          T_Fr_days=T_Fr_days,
+                          packet_delay_days=packet_delay_days, f=f, Cg=Cg,
+                          **cfg_overrides)
+            for (w0, ug) in sweep]
+    s, es, carry_b = setup_ensemble(cfgs, device=device, dtype=dtype)
+    E = len(cfgs)
+    if T_member is not None:
+        es = es.replace(T=[float(T_member(w0, ug)) for (w0, ug) in sweep])
+    cfg0 = cfgs[0]
+    saves_per_pv = max(1, cfg0.steps_per_save
+                       // cfg0.packet_steps_per_save)
+    steps_per_chunk = saves_per_pv * cfg0.packet_steps_per_save
+
+    if init_from is not None:
+        carry_b = restore_state(init_from, carry_b)
+        log(f"seeded initial carry from {init_from}")
+
+    dts, Ts, U0s = es.dt, es.T, es.U0
+    t0s = np.array(carry_b.flow_state.t, np.float64)
+    # chunk budget covers the REMAINING time of the slowest member
+    # (t0 > 0 only when init_from seeds a continuation)
+    n_steps_i = np.ceil(np.maximum(Ts - t0s, 0.0) / dts).astype(np.int64)
+    n_steps = int(n_steps_i.max()) if max_steps is None else \
+        min(int(n_steps_i.max()), max_steps)
+    n_chunks = max(1, int(np.ceil(n_steps / steps_per_chunk)))
+
+    # per-member omega scale: omega_max_factor * w0 * f
+    wmax = np.asarray([omega_hist_max_factor * w0 * f
+                       for (w0, ug) in sweep])
+    spec = OmegaHistSpec(n_bins=int(omega_hist_bins), omega_max=1.0,
+                         f=f, Cg=Cg,
+                         omega_min=f if omega_hist_log else 0.0,
+                         log_bins=bool(omega_hist_log))
+    dev = carry_b.packet_x.device
+    wmax_dev = torch.as_tensor(wmax, dtype=dtype, device=dev)
+    members = torch.arange(E, device=dev)
+
+    def diag(c, i):
+        return omega_hist_counts(c.packet_k, spec, omega_max=wmax_dev[i])
+
+    if member_ids is None:
+        member_ids = list(range(E))
+    assert len(member_ids) == E
+
+    # per-member run directories (the SLURM array's run-<task> layout)
+    rds = []
+    for i, (w0, ug) in enumerate(sweep):
+        rd = RunDir(f"{base_dir}/run-{member_ids[i]}")
+        rd.write_params(
+            nx=nx, n_packets=Npackets, near_inertial_factor=w0, f=f,
+            Cg=Cg, U_g=ug, U0=float(U0s[i]), Fr=float(U0s[i] / Cg),
+            dt=float(dts[i]), T=float(Ts[i]),
+            n_steps=int(min(n_steps_i[i], n_steps)),
+            steps_per_save=cfg0.steps_per_save,
+            packet_steps_per_save=cfg0.packet_steps_per_save,
+            stepper=cfg0.stepper, n_substeps=cfg0.n_substeps, L=cfg0.L,
+            omega_hist_bins=spec.n_bins, omega_hist_max=float(wmax[i]),
+            omega_hist_log=bool(spec.log_bins),
+            omega_hist_min=float(spec.omega_min),
+            t_seed=float(t0s[i]) if init_from else 0.0,
+            sweep_member=member_ids[i])
+        rd.write_run_log(
+            nx=nx, n_packets=Npackets, k_radius=w0 * f, dt=float(dts[i]),
+            T=float(Ts[i]), spin_up=float(packet_delay_days / f),
+            steps_per_save=cfg0.steps_per_save,
+            packet_steps_per_save=cfg0.packet_steps_per_save, f=f, Cg=Cg,
+            U_g=ug, U0=float(U0s[i]), Fr=float(U0s[i] / Cg),
+            Kd2=f / Cg)
+        rds.append(rd)
+    rd_base = RunDir(base_dir)
+    rd_base.write_params(sweep=[list(map(float, p)) for p in sweep],
+                         nx=nx, n_packets=Npackets, n_chunks=n_chunks,
+                         steps_per_chunk=steps_per_chunk)
+
+    state = {"s": s}
+
+    def make_run():
+        return functools.partial(run_ensemble_chunk, s=state["s"], cfg=cfg0,
+                                 n_saves=saves_per_pv, diag_fn=diag)
+
+    run = make_run()
+    chunk0 = 0
+    ck = latest_checkpoint(base_dir, prefix=f"ckpt-g{member_ids[0]}") \
+        if resume else None
+    if ck is not None:
+        carry_b = restore_state(ck, carry_b)
+        chunk0 = int(ck.split("_")[-1].split(".")[0])
+        log(f"resumed sweep from {ck} at chunk {chunk0}")
+
+    def pv_grids(c):
+        return _host(sp.to_grid(c.flow_state.qk, s.grid))  # (E, nx, ny)
+
+    # initial histogram (and PV, when a series is kept) frame per member
+    hist0 = _host(diag(carry_b, members))
+    if chunk0 == 0:
+        q0_b = pv_grids(carry_b) if pv_every else None
+        for i, rd in enumerate(rds):
+            binio.write_field(np.ascontiguousarray(hist0[i]),
+                              rd.file("omega_hist"), 1)
+            binio.write_field(np.asarray(t0s[i]),
+                              rd.file("packet_time"), 1)
+            if pv_every:
+                binio.write_field(np.ascontiguousarray(q0_b[i]),
+                                  rd.file("pv"), 1)
+                binio.write_field(np.asarray(t0s[i]),
+                                  rd.file("pv_time"), 1)
+
+    frame_i = np.full(E, chunk0 * saves_per_pv + 1, np.int64)
+    pv_frame_i = np.ones(E, np.int64)
+    last_t = np.full(E, -1.0)
+    last_pv_t = np.full(E, -1.0)
+    if chunk0:
+        # Resume: continue each member's frame series from its FILE, not
+        # from the chunk arithmetic — members frozen before the checkpoint
+        # have shorter series (frames stop when t stalls), and live
+        # members' re-run chunks must skip the frames already written.
+        for i, rd in enumerate(rds):
+            tpath = rd.file("packet_time")
+            n_i = binio.frame_count(tpath, 1)
+            if n_i:
+                ts_i = binio.read_field(tpath)
+                frame_i[i] = n_i
+                last_t[i] = float(ts_i[-1])
+            if pv_every:
+                n_pv = binio.frame_count(rd.file("pv_time"), 1)
+                if n_pv:
+                    pv_frame_i[i] = n_pv
+                    last_pv_t[i] = float(
+                        binio.read_field(rd.file("pv_time"))[-1])
+    t_start = time.time()
+    margin_retries = 0
+    writer = AsyncWriter()
+    chunk = chunk0
+    try:
+        while chunk < n_chunks:
+            chunk_start = carry_b
+            tc = time.time()
+            carry_b, (hb, tsb) = run(carry_b, es)
+            # one bool per member: also where the chunk's launches finish
+            ok_b = _host(torch.isfinite(carry_b.flow_state.qk)
+                         .flatten(1).all(1))
+            elapsed = time.time() - tc
+            if not ok_b.all():
+                bad = [i for i in range(E) if not ok_b[i]]
+                log(f"BLOW UP in members {bad} at chunk {chunk}; stopping")
+                rd_base.log_metrics(chunk=chunk, blow_up=True, members=bad)
+                break
+            if carry_b.overflow is not None:
+                ov = int(carry_b.overflow.max())
+                if ov > 0:
+                    rd_base.log_metrics(chunk=chunk, march_overflow=ov,
+                                        chunk_discarded=True)
+                    if margin_retries < max_margin_retries:
+                        margin_retries += 1
+                        from .ops.march_window import max_margin
+                        sn = state["s"]
+                        cap = max_margin(min(sn.grid.nx, sn.grid.ny))
+                        new_m = min(sn.march.margin + ov + 1, cap)
+                        log(f"sweep march margin {sn.march.margin} -> "
+                            f"{new_m}; re-running chunk {chunk}")
+                        state["s"] = sn._replace(
+                            march=sn.march._replace(margin=new_m))
+                        run = make_run()
+                        carry_b = chunk_start
+                        continue
+                    log(f"HALT: sweep margin overflow {ov} at chunk {chunk}")
+                    carry_b = chunk_start
+                    break
+                carry_b = dataclasses.replace(
+                    carry_b, overflow=torch.zeros_like(carry_b.overflow))
+            hb_np, ts_np = _host(hb), tsb.numpy()
+            for i, rd in enumerate(rds):
+                for j in range(hb_np.shape[1]):
+                    # frozen members stop producing frames (t stalls)
+                    if ts_np[i, j] <= last_t[i]:
+                        continue
+                    last_t[i] = ts_np[i, j]
+                    frame_i[i] += 1
+                    writer.submit(binio.write_field,
+                                  np.ascontiguousarray(hb_np[i, j]),
+                                  rd.file("omega_hist"), int(frame_i[i]))
+                    writer.submit(binio.write_field, ts_np[i, j],
+                                  rd.file("packet_time"), int(frame_i[i]))
+            if pv_every and (chunk + 1) % pv_every == 0:
+                q_b = pv_grids(carry_b)
+                for i, rd in enumerate(rds):
+                    if ts_np[i, -1] <= last_pv_t[i]:
+                        continue  # frozen member: PV is static
+                    last_pv_t[i] = ts_np[i, -1]
+                    pv_frame_i[i] += 1
+                    writer.submit(binio.write_field,
+                                  np.ascontiguousarray(q_b[i]),
+                                  rd.file("pv"), int(pv_frame_i[i]))
+                    writer.submit(binio.write_field, float(ts_np[i, -1]),
+                                  rd.file("pv_time"), int(pv_frame_i[i]))
+            rd_base.log_metrics(
+                chunk=chunk, steps=steps_per_chunk, wall_s=elapsed,
+                members_live=int((ts_np[:, -1] < Ts).sum()),
+                member_steps_per_sec=steps_per_chunk * E / elapsed,
+                packet_steps_per_sec=(steps_per_chunk * E * Npackets
+                                      / elapsed))
+            if checkpoint_every and (chunk + 1) % checkpoint_every == 0:
+                writer.flush()
+                save_state(RunDir(base_dir).path / f"ckpt-g{member_ids[0]}",
+                           dataclasses.replace(carry_b, prev_win=None,
+                                               overflow=None),
+                           step=chunk + 1)
+            if chunk % 10 == 0:
+                log(f"{100.0 * (chunk + 1) / n_chunks:6.2f}%  "
+                    f"t_max={ts_np[:, -1].max():.2f} "
+                    f"live={int((ts_np[:, -1] < Ts).sum())}/{E} "
+                    f"({steps_per_chunk / elapsed:.1f} ens-steps/s)")
+            chunk += 1
+            margin_retries = 0
+    finally:
+        writer.close()
+
+    # final per-member packet snapshot + PV (reference record layouts)
+    px_np = _host(carry_b.packet_x)
+    pk_np = _host(carry_b.packet_k)
+    q_np = pv_grids(carry_b)
+    for i, rd in enumerate(rds):
+        binio.write_field(s.grid.wrap_centered(px_np[i].T),
+                          rd.file("packet_snap_x"), 1)
+        binio.write_field(np.ascontiguousarray(pk_np[i].T),
+                          rd.file("packet_snap_k"), 1)
+        binio.write_field(np.asarray(last_t[i]),
+                          rd.file("packet_snap_time"), 1)
+        # final PV: appends to the in-run series when one is kept
+        # (pv_every > 0), else the single final frame
+        fin = int(pv_frame_i[i]) + 1 if (
+            pv_every and last_t[i] > last_pv_t[i]) else int(pv_frame_i[i])
+        binio.write_field(q_np[i], rd.file("pv"), fin)
+        binio.write_field(np.asarray(last_t[i]), rd.file("pv_time"), fin)
+        rd.finish_run_log()
+    log(f"sweep done: {time.time() - t_start:.1f} s wall for {E} members")
+    return carry_b, rds

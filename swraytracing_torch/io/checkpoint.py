@@ -8,7 +8,10 @@ in place, None slots skipped (for CoupledCarry: qk, rhs_m1, rhs_m2, t,
 step, packet_x, packet_k, prev_fields, then prev_win and overflow when
 set) — plus `__treedef__`, a description nothing reads back. A host
 scalar is stored as a 0-d array: the time as float64, the step count as
-int32, the JAX package's types.
+int32, the JAX package's types. An ensemble's carry (parallel/ensemble.py)
+keeps its members' times and step counts in host arrays, stored the same
+way as (E,) arrays: `leaf_3` is the members' `t`, as the JAX package's
+ensemble checkpoints hold it.
 """
 
 from __future__ import annotations
@@ -42,7 +45,12 @@ def _to_host(leaf):
         return np.int32(leaf)
     if isinstance(leaf, float):
         return np.float64(leaf)
-    return np.asarray(leaf)
+    leaf = np.asarray(leaf)
+    if leaf.dtype.kind in "iu":    # members' step counts
+        return leaf.astype(np.int32)
+    if leaf.dtype.kind == "f":     # members' times
+        return leaf.astype(np.float64)
+    return leaf
 
 
 def _rebuild(like, leaves):
@@ -59,6 +67,8 @@ def _rebuild(like, leaves):
         return torch.tensor(value, dtype=like.dtype, device=like.device)
     if isinstance(like, (int, float)):
         return type(like)(value)
+    if isinstance(like, np.ndarray):
+        return np.array(value, dtype=like.dtype)
     return value
 
 

@@ -24,10 +24,20 @@ Kernels (C entry -> wrapper):
                                 read by cell from the window arrays) and
                                 march_cuda (pre-gathered rows), by the
                                 route ops.march_window.march_route gives
+  swr_march_batched_f32, _f64,  the same kernels over the members of an
+  swr_march_batched_staged_f32, ensemble in one launch, each member's
+  _f64                          substep length read from a float64 device
+                                array: ops.march_window.
+                                march_gathered_batched_cuda
   swr_transpose                 csrc/transpose.cu
                                 ops.march_window.transpose_cuda
+  swr_transpose_batched         csrc/transpose.cu, E matrices in one launch:
+                                ops.march_window.transpose_batched_cuda
   swr_build_windows             csrc/build_windows.cu
                                 ops.march_window.build_windows_cuda
+  swr_build_windows_batched     csrc/build_windows.cu, E members in one
+                                launch: ops.march_window.
+                                build_windows_batched_cuda
   swr_march_rays_f32, _f64      csrc/march_rays.cu
                                 ops.march_rays.march_rays_cuda
   swr_rays_cell_histogram,      csrc/march_rays.cu: the packets' order by
@@ -128,11 +138,35 @@ def _bind(lib: ctypes.CDLL) -> None:
             i32, i32, i32,       # margin, n_substeps, nf
             i32, i32,            # stepper, threads per block
             vp]                  # stream
+    for march in (lib.swr_march_batched_f32, lib.swr_march_batched_f64,
+                  lib.swr_march_batched_staged_f32,
+                  lib.swr_march_batched_staged_f64):
+        march.restype = i32
+        march.argtypes = [
+            vp, vp,              # the members' window arrays, both snapshots
+            i32, i64, i32,       # members, ncells, K
+            vp, vp, vp,          # xk, oi, oj
+            vp, vp,              # out, overflow
+            i64, vp,             # Np, sub_dt (members,) float64
+            i32, i32, f64, f64,  # nx, ny, 1/dx, 1/dy
+            f64, f64,            # f^2, Cg^2
+            i32, i32, i32,       # margin, n_substeps, nf
+            i32, i32,            # stepper, threads per block
+            vp]                  # stream
     lib.swr_transpose.restype = i32
     lib.swr_transpose.argtypes = [i32, vp, vp, i64, i64, vp]
+    lib.swr_transpose_batched.restype = i32
+    lib.swr_transpose_batched.argtypes = [i32, vp, vp, i32, i64, i64, vp]
     lib.swr_build_windows.restype = i32
     lib.swr_build_windows.argtypes = [
         i32, vp, vp,             # dtype, F, W
+        i32, i32, i32,           # nf, nx, ny
+        i32, i32,                # SW, order + margin
+        vp]                      # stream
+    lib.swr_build_windows_batched.restype = i32
+    lib.swr_build_windows_batched.argtypes = [
+        i32, vp, vp,             # dtype, F, W
+        i32, i64,                # members, elements between members' fields
         i32, i32, i32,           # nf, nx, ny
         i32, i32,                # SW, order + margin
         vp]                      # stream

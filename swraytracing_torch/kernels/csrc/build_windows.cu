@@ -41,6 +41,13 @@
 // stores (half as fast at the main shape, where it is not taken). The
 // window array is written exactly once; the two-pass route (shifted
 // copies, then the tiled transpose) writes it twice and reads it once.
+//
+// Members (B5: `_build_kernel` under `jax.vmap` in the JAX package's
+// parallel/ensemble.py): swr_build_windows_batched builds the window
+// arrays of E members' fields in one launch; blockIdx.y is the member,
+// whose fields start f_member elements after the previous member's and
+// whose window array ncells*K after. Each is built exactly as a single
+// launch would.
 
 #include <cuda_runtime.h>
 
@@ -80,12 +87,15 @@ __device__ __forceinline__ int wrap_once(int v, int n) {
 template <typename T, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 build_windows_kernel(const T* __restrict__ F, T* __restrict__ W, int nf,
-                     int nx, int ny, int sw, int lo, int run_max, int pitch) {
+                     int nx, int ny, int sw, int lo, int run_max, int pitch,
+                     long long f_member) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
   constexpr int N = Piece<T>::N;
   const int K = nf * sw * sw, KN = K / N;
   const long long ncells = (long long)nx * ny;
+  F += blockIdx.y * f_member;  // this block's member
+  W += blockIdx.y * ncells * K;
   const int runs_per_row = (ny + run_max - 1) / run_max;
   const int i = blockIdx.x / runs_per_row;
   const int j0 = (blockIdx.x - i * runs_per_row) * run_max;
@@ -140,9 +150,9 @@ build_windows_kernel(const T* __restrict__ F, T* __restrict__ W, int nf,
 }
 
 template <typename T>
-int launch(const void* F, void* W, int nf, int nx, int ny, int sw, int lo,
-           cudaStream_t stream) {
-  if (nf == 0) return 0;
+int launch(const void* F, void* W, int E, long long f_member, int nf, int nx,
+           int ny, int sw, int lo, cudaStream_t stream) {
+  if (nf == 0 || E == 0) return 0;
   const int KN = nf * sw * sw / Piece<T>::N;
   // the longest run whose tile fits; an odd pitch spreads the window rows
   // over the banks
@@ -159,14 +169,30 @@ int launch(const void* F, void* W, int nf, int nx, int ny, int sw, int lo,
   const dim3 block(qx, cy);
   const long long blocks = (long long)((ny + run - 1) / run) * nx;
   if (blocks > 2147483647LL) return -1;
-  const unsigned grid = (unsigned)blocks;
+  const dim3 grid((unsigned)blocks, (unsigned)E);
   if (staged)
     build_windows_kernel<T, true><<<grid, block, smem, stream>>>(
-        (const T*)F, (T*)W, nf, nx, ny, sw, lo, run, pitch);
+        (const T*)F, (T*)W, nf, nx, ny, sw, lo, run, pitch, f_member);
   else
     build_windows_kernel<T, false><<<grid, block, 0, stream>>>(
-        (const T*)F, (T*)W, nf, nx, ny, sw, lo, run, pitch);
+        (const T*)F, (T*)W, nf, nx, ny, sw, lo, run, pitch, f_member);
   return (int)cudaGetLastError();
+}
+
+int launch_checked(int dtype, const void* F, void* W, int E,
+                   long long f_member, int nf, int nx, int ny, int sw,
+                   int lo, void* stream) {
+  if (nf < 0 || nx < 1 || ny < 1 || sw < 2 || sw % 2 || lo < 0 || lo >= sw)
+    return -1;
+  if (E < 0 || E > 65535) return -1;
+  const int hi = sw - 1 - lo;  // the window's reach to the right, >= lo
+  if (hi > nx || hi > ny || lo > hi) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(F, W, E, f_member, nf, nx, ny, sw, lo, s);
+  if (dtype == 1)
+    return launch<double>(F, W, E, f_member, nf, nx, ny, sw, lo, s);
+  return -1;
 }
 
 }  // namespace
@@ -179,12 +205,15 @@ int launch(const void* F, void* W, int nf, int nx, int ny, int sw, int lo,
 extern "C" int swr_build_windows(int dtype, const void* F, void* W, int nf,
                                  int nx, int ny, int sw, int lo,
                                  void* stream) {
-  if (nf < 0 || nx < 1 || ny < 1 || sw < 2 || sw % 2 || lo < 0 || lo >= sw)
-    return -1;
-  const int hi = sw - 1 - lo;  // the window's reach to the right, >= lo
-  if (hi > nx || hi > ny || lo > hi) return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(F, W, nf, nx, ny, sw, lo, s);
-  if (dtype == 1) return launch<double>(F, W, nf, nx, ny, sw, lo, s);
-  return -1;
+  return launch_checked(dtype, F, W, 1, 0, nf, nx, ny, sw, lo, stream);
+}
+
+// E members at once, E at most 65535: member m's fields at F + m*f_member
+// (each (nf, nx, ny) contiguous), its window array at W + m*nx*ny*K. As
+// swr_build_windows otherwise.
+extern "C" int swr_build_windows_batched(int dtype, const void* F, void* W,
+                                         int E, long long f_member, int nf,
+                                         int nx, int ny, int sw, int lo,
+                                         void* stream) {
+  return launch_checked(dtype, F, W, E, f_member, nf, nx, ny, sw, lo, stream);
 }

@@ -56,9 +56,20 @@
 // lanes already. A staged launch that does not fit is refused, not
 // rerouted.
 //
+// Members. The same kernel marches the members of an ensemble in one
+// launch (B5: `_march_kernel` under `jax.vmap` in the JAX package's
+// parallel/ensemble.py): blockIdx.y is the member, whose window arrays,
+// packets, cells and overflow counts start at fixed member strides, and
+// whose substep length the kernel reads from a float64 device array and
+// rounds to T as the single-member launch rounds its argument. A member
+// is the same computation as a single-member launch on its own arrays,
+// so its results are the same bits. The single-member entries launch one
+// member (gridDim.y = 1) with the substep length as an argument.
+//
 // This header holds the kernel; march_f32.cu, march_f64.cu (direct) and
 // march_staged_f32.cu, march_staged_f64.cu (staged) instantiate it for one
-// scalar type and route each, so the four compile side by side.
+// scalar type and route each, with the single-member and the ensemble
+// entry, so the four compile side by side.
 
 #pragma once
 
@@ -88,6 +99,8 @@ struct MarchArgs {
   int* ov;              // (Np,)
   long long np;
   double sub_dt;
+  const double* sub_dt_e;  // (E,) per member, or null: sub_dt for all
+  long long member_win;    // elements from one member's windows to the next
   int nx, ny;
   double inv_dx, inv_dy, f2, gH;
   int margin, nsub;
@@ -263,7 +276,18 @@ __device__ __forceinline__ void stage_rows(const MarchArgs<T>& A, T* dst,
 }
 
 template <typename T, bool GRAD, int STEPPER, bool STAGED>
-__global__ void __launch_bounds__(256) march_kernel(MarchArgs<T> A) {
+__global__ void __launch_bounds__(256) march_kernel(const MarchArgs<T> A0) {
+  // this block's member: its arrays and its substep length
+  MarchArgs<T> A = A0;
+  const long long member = blockIdx.y;
+  A.p1 += member * A0.member_win;
+  A.p2 += member * A0.member_win;
+  A.xk += member * 4 * A0.np;
+  A.out += member * 4 * A0.np;
+  A.oi += member * A0.np;
+  A.oj += member * A0.np;
+  A.ov += member * A0.np;
+  if (A0.sub_dt_e) A.sub_dt = A0.sub_dt_e[member];
   const long long pkt = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const bool live = pkt < A.np;  // ragged last block
   if (!STAGED && !live) return;
@@ -370,8 +394,11 @@ __global__ void __launch_bounds__(256) march_kernel(MarchArgs<T> A) {
 constexpr size_t SMEM_PER_SM = 232448;
 
 template <typename T, bool GRAD, int STEPPER, bool STAGED>
-int launch_kernel(const MarchArgs<T>& A, int threads, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((A.np + threads - 1) / threads);
+int launch_kernel(const MarchArgs<T>& A, int members, int threads,
+                  cudaStream_t stream) {
+  const long long bx = (A.np + threads - 1) / threads;
+  if (bx > 2147483647LL) return -1;
+  const dim3 blocks((unsigned)bx, (unsigned)members);
   size_t smem = 0;
   if (STAGED) {
     const int sw = 6 + 2 * A.margin;
@@ -398,16 +425,18 @@ int launch_kernel(const MarchArgs<T>& A, int threads, cudaStream_t stream) {
 }
 
 template <typename T, bool GRAD, bool STAGED>
-int launch_stepper(const MarchArgs<T>& A, int stepper, int threads,
-                   cudaStream_t stream) {
-  if (A.np == 0) return 0;
+int launch_stepper(const MarchArgs<T>& A, int stepper, int members,
+                   int threads, cudaStream_t stream) {
+  if (A.np == 0 || members == 0) return 0;
   switch (stepper) {
     case RK23:
-      return launch_kernel<T, GRAD, RK23, STAGED>(A, threads, stream);
+      return launch_kernel<T, GRAD, RK23, STAGED>(A, members, threads,
+                                                  stream);
     case RK4:
-      return launch_kernel<T, GRAD, RK4, STAGED>(A, threads, stream);
+      return launch_kernel<T, GRAD, RK4, STAGED>(A, members, threads, stream);
     case SYMPLECTIC:
-      return launch_kernel<T, GRAD, SYMPLECTIC, STAGED>(A, threads, stream);
+      return launch_kernel<T, GRAD, SYMPLECTIC, STAGED>(A, members, threads,
+                                                        stream);
     default:
       return -1;
   }
@@ -418,15 +447,21 @@ int launch_stepper(const MarchArgs<T>& A, int stepper, int threads,
 // 2 symplectic. gathered: p1, p2 are (ncells, K) cell-window arrays and a
 // packet reads row oi*ny + oj (oi, oj trusted to lie in [0, n)); else row
 // `packet`. STAGED needs se == 1 and threads/32 warps' rows within an
-// SM's shared memory.
+// SM's shared memory. members: the number of members (1 for a
+// single-member launch), at most 65535; member m's windows start
+// member_win elements after member m-1's, its xk and out 4*np, its oi, oj
+// and ov np; sub_dt_e: the members' substep lengths on the device, or
+// null for `sub_dt` alone.
 // Returns cudaGetLastError() after the launch, -1 for a configuration
 // with no kernel, or -2 for a staged block whose rows pass SMEM_PER_SM.
 template <typename T, bool STAGED>
 int launch(const void* p1, const void* p2, long long sp, long long se,
            int gathered, const void* xk, const void* oi, const void* oj,
-           void* out, void* ov, long long np, double sub_dt, int nx, int ny,
-           double inv_dx, double inv_dy, double f2, double gH, int margin,
-           int nsub, int nf, int stepper, int threads, void* stream) {
+           void* out, void* ov, long long np, double sub_dt,
+           const void* sub_dt_e, int members, long long member_win, int nx,
+           int ny, double inv_dx, double inv_dy, double f2, double gH,
+           int margin, int nsub, int nf, int stepper, int threads,
+           void* stream) {
   MarchArgs<T> A;
   A.p1 = (const T*)p1;
   A.p2 = (const T*)p2;
@@ -440,6 +475,8 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
   A.ov = (int*)ov;
   A.np = np;
   A.sub_dt = sub_dt;
+  A.sub_dt_e = (const double*)sub_dt_e;
+  A.member_win = member_win;
   A.nx = nx;
   A.ny = ny;
   A.inv_dx = inv_dx;
@@ -449,18 +486,23 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
   A.margin = margin;
   A.nsub = nsub;
   if (threads < 32 || threads > 256 || threads % 32 || margin < 0 ||
-      nsub < 1)
+      nsub < 1 || members < 0 || members > 65535)
     return -1;
   if (STAGED && se != 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (nf == 2) return launch_stepper<T, true, STAGED>(A, stepper, threads, s);
-  if (nf == 6) return launch_stepper<T, false, STAGED>(A, stepper, threads, s);
+  if (nf == 2)
+    return launch_stepper<T, true, STAGED>(A, stepper, members, threads, s);
+  if (nf == 6)
+    return launch_stepper<T, false, STAGED>(A, stepper, members, threads, s);
   return -1;
 }
 
-// The C entry of one scalar type and route (march_*.cu), to stand behind
-// `extern "C"`.
-#define SWR_MARCH_ENTRY(name, T, STAGED)                                     \
+// The C entries of one scalar type and route (march_*.cu), to stand
+// behind `extern "C"`: `name` marches one member with the substep length
+// as an argument; `batched` marches `members` members of (ncells, K)
+// window arrays read by cell (gathered), each with its own substep length
+// from the float64 device array sub_dt_e.
+#define SWR_MARCH_ENTRY(name, batched, T, STAGED)                            \
   int name(                                                                  \
       const void* p1, const void* p2, long long sp, long long se,            \
       int gathered, const void* xk, const void* oi, const void* oj,          \
@@ -468,8 +510,21 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
       double inv_dx, double inv_dy, double f2, double gH, int margin,        \
       int nsub, int nf, int stepper, int threads, void* stream) {            \
     return launch<T, STAGED>(p1, p2, sp, se, gathered, xk, oi, oj, out, ov,  \
-                             np, sub_dt, nx, ny, inv_dx, inv_dy, f2, gH,     \
-                             margin, nsub, nf, stepper, threads, stream);    \
+                             np, sub_dt, nullptr, 1, 0, nx, ny, inv_dx,      \
+                             inv_dy, f2, gH, margin, nsub, nf, stepper,      \
+                             threads, stream);                               \
+  }                                                                          \
+  int batched(                                                               \
+      const void* win1, const void* win2, int members, long long ncells,     \
+      int K, const void* xk, const void* oi, const void* oj, void* out,      \
+      void* ov, long long np, const void* sub_dt_e, int nx, int ny,          \
+      double inv_dx, double inv_dy, double f2, double gH, int margin,        \
+      int nsub, int nf, int stepper, int threads, void* stream) {            \
+    if (!sub_dt_e) return -1;                                                \
+    return launch<T, STAGED>(win1, win2, K, 1, 1, xk, oi, oj, out, ov, np,   \
+                             0.0, sub_dt_e, members, ncells * K, nx, ny,     \
+                             inv_dx, inv_dy, f2, gH, margin, nsub, nf,       \
+                             stepper, threads, stream);                      \
   }
 
 }  // namespace

@@ -3,4 +3,6 @@
 
 #include "march.cuh"
 
-extern "C" SWR_MARCH_ENTRY(swr_march_f32, float, false)
+extern "C" {
+SWR_MARCH_ENTRY(swr_march_f32, swr_march_batched_f32, float, false)
+}

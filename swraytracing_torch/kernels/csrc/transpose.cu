@@ -27,6 +27,8 @@ __global__ void __launch_bounds__(TILE * ROWS)
 transpose_kernel(const T* __restrict__ in, T* __restrict__ out, long long A,
                  long long B, long long tiles_b) {
   __shared__ T tile[TILE][TILE + 1];
+  in += blockIdx.y * A * B;  // this block's matrix
+  out += blockIdx.y * A * B;
   const long long bid = blockIdx.x;
   const long long a0 = (bid / tiles_b) * TILE;  // first row of `in`
   const long long b0 = (bid % tiles_b) * TILE;  // first column of `in`
@@ -42,16 +44,24 @@ transpose_kernel(const T* __restrict__ in, T* __restrict__ out, long long A,
 }
 
 template <typename T>
-int launch(const void* in, void* out, long long A, long long B,
+int launch(const void* in, void* out, int E, long long A, long long B,
            cudaStream_t stream) {
   const long long tiles_a = (A + TILE - 1) / TILE;
   const long long tiles_b = (B + TILE - 1) / TILE;
   const long long blocks = tiles_a * tiles_b;
-  if (blocks == 0) return 0;
-  if (blocks > 2147483647LL) return -1;
-  transpose_kernel<T><<<(unsigned)blocks, dim3(TILE, ROWS), 0, stream>>>(
-      (const T*)in, (T*)out, A, B, tiles_b);
+  if (blocks == 0 || E == 0) return 0;
+  if (blocks > 2147483647LL || E < 0 || E > 65535) return -1;
+  transpose_kernel<T><<<dim3((unsigned)blocks, (unsigned)E), dim3(TILE, ROWS),
+                        0, stream>>>((const T*)in, (T*)out, A, B, tiles_b);
   return (int)cudaGetLastError();
+}
+
+int launch_dtype(int dtype, const void* in, void* out, int E, long long A,
+                 long long B, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return launch<float>(in, out, E, A, B, s);
+  if (dtype == 1) return launch<double>(in, out, E, A, B, s);
+  return -1;
 }
 
 }  // namespace
@@ -60,9 +70,14 @@ int launch(const void* in, void* out, long long A, long long B,
 // launch, or -1 for a configuration with no kernel.
 extern "C" int swr_transpose(int dtype, const void* in, void* out,
                              long long A, long long B, void* stream) {
-  if (dtype == 0) return launch<float>(in, out, A, B, (cudaStream_t)stream);
-  if (dtype == 1) return launch<double>(in, out, A, B, (cudaStream_t)stream);
-  return -1;
+  return launch_dtype(dtype, in, out, 1, A, B, stream);
+}
+
+// E matrices (E, A, B) -> (E, B, A), E at most 65535; as swr_transpose.
+extern "C" int swr_transpose_batched(int dtype, const void* in, void* out,
+                                     int E, long long A, long long B,
+                                     void* stream) {
+  return launch_dtype(dtype, in, out, E, A, B, stream);
 }
 
 // The runtime's text for an error code returned by the entries above.

@@ -24,6 +24,13 @@ one-layer model's entry points (`CoupledConfig`, `setup_coupled`,
 Everything runs eagerly: a chunk is a Python loop over flow steps, each a
 fixed sequence of device launches with no host synchronisation (time and
 step count live on the host).
+
+The lock-step and the carry also take an ensemble's members (a leading
+member axis E on every tensor of the carry, `t` and `step` host arrays;
+parallel/ensemble.py): lockstep_step is then given each member's substep
+length as an (E,) float64 device tensor, and the fused march, the window
+builds and the per-stage path run all members at once, the kernels one
+launch each for all members.
 """
 
 from __future__ import annotations
@@ -119,7 +126,9 @@ class CoupledSetup(NamedTuple):
 
 @dataclasses.dataclass
 class CoupledCarry:
-    """State carried from one flow step to the next."""
+    """State carried from one flow step to the next. An ensemble's carry
+    has a leading member axis E on every tensor below ((E, 2, Np) packets,
+    (E, nf, nx, ny) fields, (E, ncells, K) windows, (E,) overflow)."""
 
     flow_state: object           # the flow solver's state (QGState, QG2State)
     packet_x: torch.Tensor       # (2, Np) coordinate-first
@@ -213,7 +222,8 @@ def _substep_fn(name: str):
 def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
                   dt, packet_delay, n_substeps: int, stepper: str,
                   march: mw.MarchSpec | None = None,
-                  window_min_np: int | None = None) -> CoupledCarry:
+                  window_min_np: int | None = None,
+                  sub_dt=None) -> CoupledCarry:
     """Generic lock-step iteration (qgsw_raytrace.m:121-151 and
     qg2layersw_raytrace.m:152-197): advance the flow one step, rebuild
     velocity grids, sub-cycle packets against the time-blended snapshots.
@@ -233,6 +243,11 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
         None) interpolates from prebuilt windows (ops/interp.build_windows)
         instead of the stencil; None means the default 65536. Pass the
         config's value (window_threshold).
+      sub_dt: an ensemble's carry only (and required there): each member's
+        substep length, an (E,) float64 tensor on the packets' device, 0
+        for a member not yet released or frozen; `dt` and `packet_delay`
+        are then not read. The caller forms it on the host from each
+        member's t, dt and delay (parallel/ensemble.py).
 
     The fused march: with (ncells, K) window rows (march.tiles_transposed,
     what build_march_spec always makes) the packets march straight from
@@ -253,24 +268,29 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
     Np = carry.packet_x.shape[-1]
 
     exp_nf = march_n_fields(march)
-    if carry.prev_fields.shape[0] != exp_nf:
+    if carry.prev_fields.shape[-3] != exp_nf:
         path = (f"march engaged, nf={march.nf}" if march is not None
                 else "march disengaged")
         raise ValueError(
-            f"carry.prev_fields holds {carry.prev_fields.shape[0]} field "
+            f"carry.prev_fields holds {carry.prev_fields.shape[-3]} field "
             f"grids but this configuration's path needs {exp_nf} "
             f"({path}). The carry was built under a different march/window "
             "configuration — rebuild it with setup_coupled / setup_coupled2 "
             "or reconcile prev_fields (the drivers do this on resume).")
-    if fields2.shape[0] != exp_nf:
+    if fields2.shape[-3] != exp_nf:
         raise ValueError(
-            f"fields_fn produced {fields2.shape[0]} field grids but the "
+            f"fields_fn produced {fields2.shape[-3]} field grids but the "
             f"path needs {exp_nf}; pass n_fields=march_n_fields(march).")
 
-    active = new_state.t > packet_delay
+    members = carry.packet_x.dim() == 3
+    if members != (sub_dt is not None):
+        raise ValueError("lockstep_step takes sub_dt, each member's substep "
+                         "length, with an ensemble's carry, and only there")
+    if not members:
+        sub_dt = dt / n_substeps if new_state.t > packet_delay else 0.0
     if march is not None:
-        return _march_step(carry, new_state, fields2, dt, active,
-                           n_substeps, stepper, march)
+        return _march_step(carry, new_state, fields2, sub_dt, n_substeps,
+                           stepper, march)
 
     if Np >= window_min_np:
         # prebuilt windows: one gathered row per packet per evaluation.
@@ -287,9 +307,13 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
         flow = BlendedFlow(fields1=carry.prev_fields, fields2=fields2,
                            grid=grid)
     m = n_substeps
-    sub_dt = dt / m if active else 0.0
     step = _substep_fn(stepper)
     x, k = carry.packet_x, carry.packet_k
+    if members:
+        # coordinate first, as the integrators index: (2, E, Np), each
+        # member's substep length broadcast over its packets
+        x, k = x.transpose(0, 1), k.transpose(0, 1)
+        sub_dt = sub_dt.to(x.dtype)[:, None]
     for i in range(m):
         a0 = i / m
         if step is None:
@@ -297,6 +321,9 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
                                         alpha=a0 + 0.5 / m)
         else:
             x, k = step(x, k, sub_dt, disp, flow, alpha0=a0, dalpha=1.0 / m)
+    if members:
+        x = x.transpose(0, 1).contiguous()
+        k = k.transpose(0, 1).contiguous()
     # a carry that came in with windows leaves with the new snapshot's
     out_win = win2 if carry.prev_win is not None else None
     return CoupledCarry(flow_state=new_state, packet_x=x, packet_k=k,
@@ -304,14 +331,16 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
                         overflow=carry.overflow)
 
 
-def _march_step(carry, new_state, fields2, dt, active, n_substeps, stepper,
+def _march_step(carry, new_state, fields2, sub_dt, n_substeps, stepper,
                 march):
     """The fused-march branch of lockstep_step: windows read ONCE per flow
     step with a `margin` drift allowance, all substeps in one kernel
     launch. Identical arithmetic to the per-stage path as long as no
     packet drifts more than `margin` cells within the step — the running
     max of the march's overflow counter is carried for callers to assert
-    on."""
+    on. An ensemble's members (sub_dt an (E,) tensor) build their windows
+    and march in one launch of each batched kernel, and keep one running
+    overflow max each."""
     if march.stepper != stepper or march.n_substeps != n_substeps:
         raise ValueError(
             "MarchSpec built for a different stepper configuration: "
@@ -321,8 +350,21 @@ def _march_step(carry, new_state, fields2, dt, active, n_substeps, stepper,
     win1 = carry.prev_win
     if win1 is None or win1.shape != win2.shape:
         win1 = mw.build_gather_windows(carry.prev_fields, march)
-    sub_dt = dt / n_substeps if active else 0.0
     x, k = carry.packet_x, carry.packet_k
+    if x.dim() == 3:
+        if not march.tiles_transposed:
+            raise ValueError("an ensemble's march reads (ncells, K) window "
+                             "rows: tiles_transposed=True")
+        oi, oj = mw.packet_cells(x[:, 0], x[:, 1], march)
+        out, ov = mw.march_gathered_batched(
+            win1, win2, torch.cat([x, k], dim=1), oi, oj, sub_dt, march)
+        new_ov = ov.amax(dim=1)
+        overflow = (new_ov if carry.overflow is None
+                    else torch.maximum(carry.overflow, new_ov))
+        out_win = win2 if carry.prev_win is not None else None
+        return CoupledCarry(flow_state=new_state, packet_x=out[:, :2],
+                            packet_k=out[:, 2:], prev_fields=fields2,
+                            prev_win=out_win, overflow=overflow)
     oi, oj = mw.packet_cells(x[0], x[1], march)
     xk = torch.cat([x, k], dim=0)
     if march.tiles_transposed:
@@ -360,13 +402,15 @@ def prepare_carry_windows(carry: CoupledCarry,
     prebuilt, by that path's window build, so each step builds windows
     only for its new snapshot; an overflow counter starting at 0 on the
     fused march and none on the per-stage path. Returns a new carry where
-    anything changes."""
+    anything changes. An ensemble's carry gets its windows built for all
+    members and one overflow counter per member, (E,)."""
     if window_min_np is None:
         window_min_np = _WINDOW_MIN_NP
     march_on = march is not None
     if march_on and carry.overflow is None:
         carry = dataclasses.replace(carry, overflow=torch.zeros(
-            (), dtype=torch.int32, device=carry.packet_x.device))
+            carry.packet_x.shape[:-2], dtype=torch.int32,
+            device=carry.packet_x.device))
     if not march_on and carry.overflow is not None:
         carry = dataclasses.replace(carry, overflow=None)
     win = carry.prev_win

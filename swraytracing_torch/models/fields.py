@@ -15,6 +15,10 @@ windows (`.windowed()`, ops/interp.build_windows), which the coupled
 models use from `window_min_np` packets on. The fused packet march
 (ops/march_window.py) interpolates from the grids itself and does not go
 through `.at`. `AnalyticFlow` is not part of this module yet.
+
+An ensemble's members (parallel/ensemble.py) carry (E, nf, nx, ny) grids:
+`flow_from_qk` takes (E, nx, nky) spectra, and `BlendedFlow.at` evaluates
+member e's grids at positions (E, Np) row e, giving (E, Np) values.
 """
 
 from __future__ import annotations
@@ -99,8 +103,8 @@ class BlendedFlow:
     as the reference's interpolate_U (interpolate_U.m:19-23). The twelve
     per-snapshot interpolations share one stencil computation."""
 
-    fields1: torch.Tensor  # (6, nx, ny) at step start
-    fields2: torch.Tensor  # (6, nx, ny) at step end
+    fields1: torch.Tensor  # (6, nx, ny) at step start; (E, 6, nx, ny)
+    fields2: torch.Tensor  # (6, nx, ny) at step end    for members
     grid: SpectralGrid
     order: int = 2
     win1: torch.Tensor | None = None  # optional prebuilt windows
@@ -121,7 +125,7 @@ class BlendedFlow:
         if self.win1 is not None:
             w = (1.0 - alpha) * self.win1 + alpha * self.win2
             return FlowEval(*interp_windowed(
-                w, self.fields1.shape[0], x, y, self.grid, self.order))
+                w, self.fields1.shape[-3], x, y, self.grid, self.order))
         ix, iy, wx, wy = stencil_and_weights(x, y, self.grid, self.order)
         blended = (1.0 - alpha) * self.fields1 + alpha * self.fields2
         return FlowEval(*interp_stencil_apply(blended, ix, iy, wx, wy))
@@ -137,7 +141,9 @@ class BlendedFlow:
 def _stack_from_psik(psik, grid: SpectralGrid, shear: float = 0.0,
                      n_fields: int = 6):
     """Streamfunction spectrum -> (n_fields, nx, ny) grids, u = -psi_y,
-    v = psi_x, uniform `shear` added to u (grid_U.m:1-18).
+    v = psi_x, uniform `shear` added to u (grid_U.m:1-18). Leading axes of
+    psik (an ensemble's members) come first: (E, nx, nky) -> (E, n_fields,
+    nx, ny).
 
     n_fields=2 builds only (u, v): the fused packet march with uv windows
     (ops/march_window.MarchSpec.grad_from_interp) forms grad U itself, so
@@ -145,16 +151,16 @@ def _stack_from_psik(psik, grid: SpectralGrid, shear: float = 0.0,
     uk = -sp.ddy(psik, grid)
     vk = sp.ddx(psik, grid)
     if n_fields == 2:
-        comps = torch.stack([uk, vk])
+        comps = torch.stack([uk, vk], dim=-3)
     else:
         comps = torch.stack([
             uk, vk,
             sp.ddx(uk, grid), sp.ddy(uk, grid),
             sp.ddx(vk, grid), sp.ddy(vk, grid),
-        ])
+        ], dim=-3)
     fields = sp.to_grid(comps, grid)  # batched over the components
     if shear:
-        fields[U] += shear  # in place: `fields` is this function's own
+        fields[..., U, :, :] += shear  # in place: this function's own
     return fields
 
 

@@ -11,9 +11,13 @@ qgsw_raytrace.m):
 
 The state keeps `t` and `step` on the host (Python float and int), as the
 two-layer solver does: the Euler / AB2 / AB3 choice is a Python branch and
-costs no device synchronisation. The static forcing and the per-step
-filter are host numpy arrays on `QGParams`; the stepping functions use
-its cached device view, so no step uploads them.
+costs no device synchronisation. An ensemble's state (parallel/ensemble.py)
+has a leading member axis on its spectra and keeps each member's `t` and
+`step` in host numpy arrays (float64 and int64); `qg_step` then takes each
+member's dt and picks each member's Euler / AB2 / AB3 formula on the host.
+The static forcing and the per-step filter are host numpy arrays on
+`QGParams`; the stepping functions use its cached device view, so no step
+uploads them.
 
 Reference quirks and how they are treated:
   * qgsw_raytrace.m:285 adds `r_drag*K2` and the forcing as *constants*
@@ -40,7 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.grid import SpectralGrid, complex_dtype, resolve_device
+from ..ops.grid import (SpectralGrid, complex_dtype, host_array_tensor,
+                        resolve_device)
 from ..ops import spectral as sp
 
 __all__ = [
@@ -98,8 +103,8 @@ class QGState:
     qk: torch.Tensor        # (nx, nky) complex PV spectrum
     rhs_m1: torch.Tensor    # previous RHS (AB history)
     rhs_m2: torch.Tensor    # RHS two steps back
-    t: float                # host scalar
-    step: int               # host scalar
+    t: float                # host scalar; (E,) float64 numpy for members
+    step: int               # host scalar; (E,) int64 numpy for members
 
 
 def _psik(qk, grid: SpectralGrid, Kd2):
@@ -133,10 +138,18 @@ def qg_init(qk0: torch.Tensor, t0: float = 0.0) -> QGState:
     return QGState(qk=qk0, rhs_m1=z, rhs_m2=z, t=float(t0), step=0)
 
 
-def qg_step(state: QGState, grid: SpectralGrid, p: QGParams) -> QGState:
+def qg_step(state: QGState, grid: SpectralGrid, p: QGParams,
+            dt=None) -> QGState:
     """One AB3 step with Euler/AB2 bootstrap (qgsw_raytrace.m:121-137),
     then the spectral filter. Returns a new state; the input is not
-    modified."""
+    modified.
+
+    An ensemble's state ((E, nx, nky) spectra, host arrays `t` and `step`)
+    takes `dt`, each member's step as an (E,) host array (0 steps a frozen
+    member with dt = 0; see _qg_step_members); a single state steps by
+    p.dt."""
+    if isinstance(state.step, np.ndarray):
+        return _qg_step_members(state, grid, p, np.asarray(dt, np.float64))
     Qn = qg_rhs(state.qk, grid, p)
     dt = p.dt
     if state.step == 0:
@@ -148,6 +161,58 @@ def qg_step(state: QGState, grid: SpectralGrid, p: QGParams) -> QGState:
                           + 5.0 * state.rhs_m2)
     qk = state.qk + dq
     filt = p.tensors(qk.device, sp._real_dtype(qk)).filter
+    if filt is not None:
+        qk = qk * filt
+    return QGState(qk=qk, rhs_m1=Qn, rhs_m2=state.rhs_m1,
+                   t=state.t + dt, step=state.step + 1)
+
+
+# Coefficient of the right-hand sides in the Euler, AB2 and AB3 updates,
+# as a multiple of dt (the factors qg_step applies to dt on the host).
+_AB_DT_FACTOR = (1.0, 2.0, 12.0)
+
+
+def _qg_step_members(state: QGState, grid: SpectralGrid, p: QGParams,
+                     dt: np.ndarray) -> QGState:
+    """qg_step over an ensemble's members, each with its own dt and its
+    own Euler / AB2 / AB3 formula, min(step, 2), as the JAX package picks
+    it per member (lax.switch under vmap). Each formula that some member
+    uses is evaluated on all members, with its coefficient dt / 1, 2 or 12
+    formed on the host in float64 and rounded once to the state's real
+    type, as the single-member step rounds it; the members then take
+    their own formula's result. The filter and the forcing are shared.
+    Every per-member tensor comes from host_array_tensor, so once the
+    members' dt and formulas repeat a step copies nothing to the device.
+    `t` advances by dt and `step` by 1 on the host, for every member: the
+    caller restores a frozen member's."""
+    qk = state.qk
+    rd = sp._real_dtype(qk)
+    dev = qk.device
+    E = qk.shape[0]
+    Qn = qg_rhs(qk, grid, p)
+    branch = np.minimum(state.step, 2)
+    live = dt != 0.0
+    # the formulas live members need (all of them when no member is live)
+    used = sorted(set(branch[live].tolist()) or set(branch.tolist()))
+    dq = None
+    for b in used:
+        coef = host_array_tensor(dt / _AB_DT_FACTOR[b], rd,
+                                 dev).reshape(E, 1, 1)
+        if b == 0:
+            term = coef * Qn
+        elif b == 1:
+            term = coef * (3.0 * Qn - state.rhs_m1)
+        else:
+            term = coef * (23.0 * Qn - 16.0 * state.rhs_m1
+                           + 5.0 * state.rhs_m2)
+        if dq is None:
+            dq = term
+        else:
+            mine = host_array_tensor(branch == b, torch.bool,
+                                     dev).reshape(E, 1, 1)
+            dq = torch.where(mine, term, dq)
+    qk = qk + dq
+    filt = p.tensors(dev, rd).filter
     if filt is not None:
         qk = qk * filt
     return QGState(qk=qk, rhs_m1=Qn, rhs_m2=state.rhs_m1,

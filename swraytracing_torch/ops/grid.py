@@ -21,7 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["SpectralGrid", "GridTensors", "complex_dtype", "resolve_device"]
+__all__ = ["SpectralGrid", "GridTensors", "complex_dtype", "resolve_device",
+           "host_array_tensor"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,6 +36,30 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU explicitly")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+# Device copies of small host arrays, by content (host_array_tensor).
+_HOST_ARRAYS: dict = {}
+_HOST_ARRAYS_MAX = 256
+
+
+def host_array_tensor(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A device tensor holding the small host array `values` in `dtype`,
+    copied to `device` once per distinct content and reused after: an
+    ensemble's per-member step lengths and live masks change only at a
+    release, a freeze or a resume, so a step that asks again for the same
+    values makes no host-to-device copy (and no synchronisation). The
+    tensor is shared: never modify it in place."""
+    arr = np.ascontiguousarray(values)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype,
+           torch.device(device))
+    hit = _HOST_ARRAYS.get(key)
+    if hit is None:
+        if len(_HOST_ARRAYS) >= _HOST_ARRAYS_MAX:
+            _HOST_ARRAYS.pop(next(iter(_HOST_ARRAYS)))  # the oldest
+        hit = torch.as_tensor(arr, dtype=dtype, device=key[-1])
+        _HOST_ARRAYS[key] = hit
+    return hit
 
 
 def complex_dtype(dtype: torch.dtype) -> torch.dtype:

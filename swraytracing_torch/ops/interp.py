@@ -36,6 +36,11 @@ index_select: the gathered rows take Np * S*S * nf elements, 0.9 GB in
 float32 at nf=6, order 2 and 2^20 packets, which an 80 GB card holds, so
 nothing is chunked.
 
+An ensemble's members (parallel/ensemble.py) interpolate their own grids
+at their own positions in one pass: fields (E, nf, nx, ny) and positions
+(E, Np) give (nf, E, Np) values (`interp_stencil_apply`), and window arrays
+(E, nx*ny, K) the same (`build_windows`, `interp_windowed`).
+
 `interpolate_cubic` is not ported yet and raises NotImplementedError.
 """
 
@@ -114,15 +119,17 @@ def stencil_and_weights(x, y, grid: SpectralGrid, order: int = 2):
     positions.
 
     Args:
-      x, y: (Np,) positions (any real values; periodic wrap applied).
+      x, y: (Np,) positions (any real values; periodic wrap applied), or
+        (E, Np) for an ensemble's members.
     Returns:
-      (ix, iy, wx, wy): ix, iy int32 (S, Np) grid indices; wx, wy (S, Np).
+      (ix, iy, wx, wy): ix, iy int32 (S, Np) grid indices; wx, wy (S, Np);
+      (S, E, Np) for members.
     """
     xl, yl, i0, j0 = _cell_coords(x, y, grid)
     wx = lagrange_weights(xl - i0, order)
     wy = lagrange_weights(yl - j0, order)
     offsets = torch.arange(-order, order + 2, dtype=torch.int32,
-                           device=x.device)[:, None]
+                           device=x.device).reshape(-1, *([1] * x.dim()))
     # floored integer modulo: floor(mod) can be exactly n (a tiny negative
     # x), and i0 + offset runs below 0 and past n
     ix = torch.remainder(i0[None].to(torch.int32) + offsets, grid.nx)
@@ -152,11 +159,15 @@ def interp_stencil_apply(F, ix, iy, wx, wy):
     """Apply a precomputed stencil to stacked fields.
 
     Args:
-      F: (nf, nx, ny) or (nx, ny) fields.
-      ix, iy: (S, Np) int32 indices; wx, wy: (S, Np) weights.
+      F: (nf, nx, ny) or (nx, ny) fields; or an ensemble's (E, nf, nx, ny),
+        member e's grids read at column e of the stencil.
+      ix, iy: (S, Np) int32 indices; wx, wy: (S, Np) weights; (S, E, Np)
+        for members.
     Returns:
-      (nf, Np) or (Np,) interpolated values.
+      (nf, Np) or (Np,) interpolated values; (nf, E, Np) for members.
     """
+    if F.dim() == 4:
+        return _interp_stencil_members(F, ix, iy, wx, wy)
     single = F.dim() == 2
     if single:
         F = F[None]
@@ -167,6 +178,20 @@ def interp_stencil_apply(F, ix, iy, wx, wy):
     vals = F.reshape(nf, nx * ny).index_select(1, flat_idx.reshape(-1))
     out = (vals.reshape(nf, S, S, Np) * w2[None]).sum((1, 2))
     return out[0] if single else out
+
+
+def _interp_stencil_members(F, ix, iy, wx, wy):
+    """interp_stencil_apply over an ensemble's members: one gather from the
+    members' grids laid side by side, each node offset by its member."""
+    E, nf, nx, ny = F.shape
+    S = ix.shape[0]
+    member = torch.arange(E, device=ix.device)[:, None] * (nx * ny)
+    flat_idx = (ix[:, None].to(torch.int64) * ny + iy[None]
+                + member)                                  # (S, S, E, Np)
+    w2 = wx[:, None] * wy[None]                            # (S, S, E, Np)
+    rows = F.transpose(0, 1).reshape(nf, E * nx * ny)
+    vals = rows.index_select(1, flat_idx.reshape(-1))
+    return (vals.reshape(nf, *flat_idx.shape) * w2[None]).sum((1, 2))
 
 
 def interpolate(F, x, y, grid: SpectralGrid, order: int = 2):
@@ -190,26 +215,38 @@ def build_windows(F, order: int = 2):
     cell: returns W of shape (nx*ny, S*S*nf) where row (i*ny + j) holds
     F[:, i-order:i+order+2, j-order:j+order+2] (periodic) laid out as
     (sx, sy, f). Pure data movement, so exact. The memory cost is (S*S)x
-    the field stack (226 MB at 512^2, nf=6, float32)."""
+    the field stack (226 MB at 512^2, nf=6, float32). An ensemble's
+    (E, nf, nx, ny) fields give (E, nx*ny, S*S*nf)."""
     if F.dim() == 2:
         F = F[None]
-    nf, nx, ny = F.shape
+    lead, (nf, nx, ny) = F.shape[:-3], F.shape[-3:]
     S = 2 * order + 2
-    Fp = torch.cat([F[:, :, ny - order:], F, F[:, :, :order + 2]], dim=2)
-    Fp = torch.cat([Fp[:, nx - order:], Fp, Fp[:, :order + 2]], dim=1)
-    # (nf, nx+1, ny+1, Sx, Sy) views of every S x S window; keep nx x ny
-    win = Fp.unfold(1, S, 1).unfold(2, S, 1)[:, :nx, :ny]
-    return win.permute(1, 2, 3, 4, 0).reshape(nx * ny, S * S * nf)
+    Fp = torch.cat([F[..., ny - order:], F, F[..., :order + 2]], dim=-1)
+    Fp = torch.cat([Fp[..., nx - order:, :], Fp, Fp[..., :order + 2, :]],
+                   dim=-2)
+    # (..., nf, nx+1, ny+1, Sx, Sy) views of every S x S window; keep
+    # nx x ny
+    d, n = Fp.dim(), len(lead)
+    win = Fp.unfold(d - 2, S, 1).unfold(d - 1, S, 1)[..., :nx, :ny, :, :]
+    return win.permute(*range(n), n + 1, n + 2, n + 3, n + 4, n).reshape(
+        *lead, nx * ny, S * S * nf)
 
 
 def interp_windowed(W, nf, x, y, grid: SpectralGrid, order: int = 2):
     """Interpolate nf stacked fields from a prebuilt window array W (see
     build_windows) at packet positions x, y (Np,): one row gathered per
     packet instead of S*S point gathers, the same Lagrange weights.
-    Returns (nf, Np)."""
+    Returns (nf, Np). An ensemble's windows (E, nx*ny, K) at positions
+    (E, Np) give (nf, E, Np), member e's rows read from W[e]."""
     i0, j0, wx, wy = cell_and_weights(x, y, grid, order)
     starts = i0.to(torch.int64) * grid.ny + j0
     S = 2 * order + 2
+    if W.dim() == 3:
+        E, ncells, K = W.shape
+        member = torch.arange(E, device=W.device)[:, None] * ncells
+        g = W.reshape(E * ncells, K).index_select(
+            0, (starts + member).reshape(-1)).reshape(E, -1, S, S, nf)
+        return torch.einsum("ecxyf,xec,yec->fec", g, wx, wy)
     g = W.index_select(0, starts).reshape(-1, S, S, nf)   # (Np, S, S, nf)
     return torch.einsum("cxyf,xc,yc->fc", g, wx, wy)
 

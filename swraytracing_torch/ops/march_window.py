@@ -38,6 +38,18 @@ plain PyTorch version beside its wrapper here:
   transpose_cuda      (csrc/transpose.cu)       plain: transpose_reference
   build_windows_cuda  (csrc/build_windows.cu)   plain: build_windows_reference
 
+and the same three over the members of an ensemble, one launch for all
+members (the JAX package vmaps its kernels over them,
+parallel/ensemble.py), each plain version the loop over members of the
+single-member one:
+
+  march_gathered_batched_cuda  plain: march_gathered_batched_reference
+  transpose_batched_cuda       plain: transpose_batched_reference
+  build_windows_batched_cuda   plain: build_windows_batched_reference
+
+`march_gathered_batched`, `transpose_batched` and `build_windows_batched`
+pick between the two by device; nothing differentiates them.
+
 `fused_march`, `fused_march_gathered`, `window_transpose` and
 `build_windows_fused` are the differentiable entry points. They pick by
 the device of the tensor they are given: a CPU tensor goes to the plain
@@ -79,6 +91,15 @@ __all__ = [
     "transpose_reference",
     "transpose_cuda",
     "window_transpose",
+    "march_gathered_batched_reference",
+    "march_gathered_batched_cuda",
+    "march_gathered_batched",
+    "transpose_batched_reference",
+    "transpose_batched_cuda",
+    "transpose_batched",
+    "build_windows_batched_reference",
+    "build_windows_batched_cuda",
+    "build_windows_batched",
 ]
 
 _STEPPERS = ("rk23", "rk4", "symplectic")
@@ -175,26 +196,29 @@ def _check_window_fits(nx: int, ny: int, spec: MarchSpec):
 
 
 def _shifted_views(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
-    """View [f, sx, sy, i, j] = F[f, i + sx - lo, j + sy - lo] (periodic,
-    lo = order + margin) of the periodically padded fields."""
-    F = F[:spec.nf]  # grad_from_interp (nf=2) keeps only (u, v)
-    nf, nx, ny = F.shape
+    """View [..., f, sx, sy, i, j] = F[..., f, i + sx - lo, j + sy - lo]
+    (periodic, lo = order + margin) of the periodically padded fields
+    (..., nf, nx, ny); leading axes (an ensemble's members) pass through."""
+    F = F[..., :spec.nf, :, :]  # grad_from_interp (nf=2) keeps (u, v)
+    nx, ny = F.shape[-2:]
     _check_window_fits(nx, ny, spec)
     lo = spec.order + spec.margin
     hi = spec.order + 1 + spec.margin
-    Fp = torch.cat([F[:, :, ny - lo:], F, F[:, :, :hi]], dim=2)
-    Fp = torch.cat([Fp[:, nx - lo:], Fp, Fp[:, :hi]], dim=1)
-    return Fp.unfold(1, nx, 1).unfold(2, ny, 1)
+    Fp = torch.cat([F[..., ny - lo:], F, F[..., :hi]], dim=-1)
+    Fp = torch.cat([Fp[..., nx - lo:, :], Fp, Fp[..., :hi, :]], dim=-2)
+    d = Fp.dim()
+    return Fp.unfold(d - 2, nx, 1).unfold(d - 1, ny, 1)
 
 
 def build_margin_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
     """(nf, nx, ny) fields -> (K, nx*ny) cell-window array W:
     W[(f*SW + sx)*SW + sy, i*ny + j] = F[f, i + sx - (order+margin),
     j + sy - (order+margin)] (periodic). Rows are shifted flattened
-    copies of the fields, written by one strided copy."""
+    copies of the fields, written by one strided copy. An ensemble's
+    (E, nf, nx, ny) fields give (E, K, nx*ny), member by member the same."""
     shifted = _shifted_views(F, spec)
     nx, ny = shifted.shape[-2:]
-    return shifted.reshape(spec.K, nx * ny)
+    return shifted.reshape(*shifted.shape[:-5], spec.K, nx * ny)
 
 
 def build_windows_reference(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
@@ -213,7 +237,16 @@ def build_gather_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
     (K, ncells) when tiles_transposed=False, else (ncells, K) for
     contiguous row gathers: in one pass with spec.fused_build
     (build_windows_fused), else through window_transpose (the transpose
-    kernel on a CUDA tensor). Both serve any nx, ny."""
+    kernel on a CUDA tensor). Both serve any nx, ny.
+
+    An ensemble's (E, nf, nx, ny) fields give (E, ...) arrays, member by
+    member the same, through the batched kernels (build_windows_batched,
+    transpose_batched): one launch for all members."""
+    if F.dim() == 4:
+        if spec.tiles_transposed and spec.fused_build:
+            return build_windows_batched(F, spec)
+        W = build_margin_windows(F, spec)
+        return transpose_batched(W) if spec.tiles_transposed else W
     if spec.tiles_transposed and spec.fused_build:
         return build_windows_fused(F, spec)
     W = build_margin_windows(F, spec)
@@ -223,9 +256,13 @@ def build_gather_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
 
 
 def packet_cells(x: torch.Tensor, y: torch.Tensor, spec: MarchSpec):
-    """Origin cell of each packet: (oi, oj) int32 in [0, n)."""
-    xl = torch.remainder(x / spec.dx, spec.nx)
-    yl = torch.remainder(y / spec.dy, spec.ny)
+    """Origin cell of each packet: (oi, oj) int32 in [0, n), of the shape
+    of x and y ((Np,), or (E, Np) for an ensemble's members). The divisor
+    is a 0-dim tensor: on a CUDA tensor PyTorch turns a division by a
+    Python scalar into a multiplication by its reciprocal, which can put a
+    packet beside a cell edge into the other cell."""
+    xl = torch.remainder(x / x.new_full((), spec.dx), spec.nx)
+    yl = torch.remainder(y / y.new_full((), spec.dy), spec.ny)
     oi = torch.floor(xl).to(torch.int32)
     oj = torch.floor(yl).to(torch.int32)
     oi = torch.where(oi >= spec.nx, oi - spec.nx, oi)
@@ -567,6 +604,30 @@ def march_route(spec: MarchSpec, dtype: torch.dtype) -> str:
     return "staged" if staged_block_limit(spec, dtype) >= 32 else "direct"
 
 
+def _checked_route(name, spec: MarchSpec, dtype, route):
+    """The route a march launch takes: `route`, or where that is None the
+    one march_route gives; raises for an unknown route and for a block the
+    route does not take."""
+    if route is None:
+        route = march_route(spec, dtype)
+    if route not in ("staged", "direct"):
+        raise ValueError(f"{name}: route must be 'staged', 'direct' or None, "
+                         f"got {route!r}")
+    if not (32 <= spec.block <= 256 and spec.block % 32 == 0):
+        raise ValueError("MarchSpec.block must be a multiple of 32 in "
+                         f"[32, 256], got {spec.block}")
+    if route == "staged":
+        limit = staged_block_limit(spec, dtype)
+        if spec.block > limit:
+            raise ValueError(
+                f"{name}: the staged route keeps 32 rows of 2K+1 = "
+                f"{2 * spec.K + 1} {dtype} values per warp in shared "
+                f"memory ({staged_warp_bytes(spec, dtype)} bytes of "
+                f"{SMEM_PER_SM} per SM), so MarchSpec.block can be at most "
+                f"{limit} here; got {spec.block}")
+    return route
+
+
 def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
                   sub_dt, spec: MarchSpec, route):
     """Launch the march kernel for `wrapper` (march_cuda or
@@ -577,24 +638,7 @@ def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
     (xk_out, overflow)."""
     from .. import kernels
 
-    name = wrapper.__name__
-    if route is None:
-        route = march_route(spec, xk.dtype)
-    if route not in ("staged", "direct"):
-        raise ValueError(f"{name}: route must be 'staged', 'direct' or None, "
-                         f"got {route!r}")
-    if not (32 <= spec.block <= 256 and spec.block % 32 == 0):
-        raise ValueError("MarchSpec.block must be a multiple of 32 in "
-                         f"[32, 256], got {spec.block}")
-    if route == "staged":
-        limit = staged_block_limit(spec, xk.dtype)
-        if spec.block > limit:
-            raise ValueError(
-                f"{name}: the staged route keeps 32 rows of 2K+1 = "
-                f"{2 * spec.K + 1} {xk.dtype} values per warp in shared "
-                f"memory ({staged_warp_bytes(spec, xk.dtype)} bytes of "
-                f"{SMEM_PER_SM} per SM), so MarchSpec.block can be at most "
-                f"{limit} here; got {spec.block}")
+    route = _checked_route(wrapper.__name__, spec, xk.dtype, route)
     Np = xk.shape[-1]
     out = torch.empty_like(xk)
     ov = torch.empty((Np,), dtype=torch.int32, device=xk.device)
@@ -906,3 +950,201 @@ def fused_march(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
     sub_dt (when it is a tensor), none for oi, oj. Returns
     (xk_out (4, Np), overflow (Np,) int32)."""
     return _FusedMarch.apply(pw1, pw2, xk, oi, oj, sub_dt, spec)
+
+
+# ---------------------------------------------------------------------------
+# Ensemble members (B5): the three window-path kernels over a leading member
+# axis, one launch for all members
+# ---------------------------------------------------------------------------
+
+def march_gathered_batched_reference(win1, win2, xk, oi, oj, sub_dt,
+                                     spec: MarchSpec):
+    """Plain version of march_gathered_batched_cuda: march_gathered_reference
+    member by member. win1, win2: (E, ncells, K) (or (E, K, ncells) when not
+    spec.tiles_transposed); xk (E, 4, Np); oi, oj (E, Np) int32; sub_dt (E,),
+    each member's substep length (0 freezes its packets). Returns
+    (xk_out (E, 4, Np), overflow (E, Np) int32)."""
+    outs = [march_gathered_reference(win1[e], win2[e], xk[e], oi[e], oj[e],
+                                     sub_dt[e], spec)
+            for e in range(xk.shape[0])]
+    return (torch.stack([o for o, _ in outs]),
+            torch.stack([ov for _, ov in outs]))
+
+
+def march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
+                                spec: MarchSpec, route=None):
+    """The fused march of every member of an ensemble in ONE launch
+    (kernels/csrc/march.cuh, the member on the grid's second axis):
+    arguments and results as march_gathered_batched_reference, contiguous
+    CUDA tensors only, (ncells, K) rows only (spec.tiles_transposed).
+    `sub_dt` is a float64 (E,) CUDA tensor, read by the kernel and rounded
+    to the packets' type as march_gathered_cuda rounds its argument, so a
+    member's result is the bits of its single-member launch. Rows are read
+    by the route march_route gives, or by `route`. Launches on the current
+    stream and does not synchronise. Counts its launches in
+    `march_gathered_batched_cuda.launches`, and by route in
+    `.launches_by_route`."""
+    from .. import kernels
+
+    name = "march_gathered_batched_cuda"
+    if not spec.tiles_transposed:
+        raise ValueError(f"{name} reads (ncells, K) window rows "
+                         "(tiles_transposed=True)")
+    _check_spec(spec)
+    if xk.dim() != 3 or xk.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: xk must be float32 or float64 (E, 4, Np), "
+                         f"got {xk.dtype} {tuple(xk.shape)}")
+    E, Np = xk.shape[0], xk.shape[-1]
+    ncells = spec.nx * spec.ny
+    _require_cuda(name, ("win1", win1, xk.dtype, (E, ncells, spec.K)),
+                  ("win2", win2, xk.dtype, (E, ncells, spec.K)),
+                  ("xk", xk, xk.dtype, (E, 4, Np)),
+                  ("oi", oi, torch.int32, (E, Np)),
+                  ("oj", oj, torch.int32, (E, Np)),
+                  ("sub_dt", sub_dt, torch.float64, (E,)))
+    if E > 65535:
+        raise ValueError(f"{name}: at most 65535 members, got {E}")
+    route = _checked_route(name, spec, xk.dtype, route)
+    out = torch.empty_like(xk)
+    ov = torch.empty((E, Np), dtype=torch.int32, device=xk.device)
+    if E == 0 or Np == 0:
+        return out, ov
+    lib = kernels.load()
+    entry = getattr(lib, "swr_march_batched_"
+                    + ("staged_" if route == "staged" else "")
+                    + ("f32" if xk.dtype == torch.float32 else "f64"))
+    with torch.cuda.device(xk.device):
+        err = entry(
+            win1.data_ptr(), win2.data_ptr(), E, ncells, spec.K,
+            xk.data_ptr(), oi.data_ptr(), oj.data_ptr(), out.data_ptr(),
+            ov.data_ptr(), Np, sub_dt.data_ptr(), spec.nx, spec.ny,
+            1.0 / spec.dx, 1.0 / spec.dy, spec.f ** 2, spec.Cg ** 2,
+            spec.margin, spec.n_substeps, spec.nf,
+            _STEPPERS.index(spec.stepper), spec.block,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, f"swr_march_batched ({route})")
+    march_gathered_batched_cuda.launches += 1
+    march_gathered_batched_cuda.launches_by_route[route] += 1
+    return out, ov
+
+
+march_gathered_batched_cuda.launches = 0
+march_gathered_batched_cuda.launches_by_route = {"staged": 0, "direct": 0}
+
+
+def march_gathered_batched(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec):
+    """The members' fused march: march_gathered_batched_cuda on CUDA
+    tensors (one launch), march_gathered_batched_reference on CPU
+    tensors. `sub_dt` is an (E,) float64 tensor on the packets' device.
+    Not differentiable (the ensemble is not differentiated, here or in the
+    JAX package). Returns (xk_out (E, 4, Np), overflow (E, Np) int32)."""
+    if xk.is_cuda:
+        return march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
+                                           spec)
+    return march_gathered_batched_reference(win1, win2, xk, oi, oj, sub_dt,
+                                            spec)
+
+
+def transpose_batched_reference(W: torch.Tensor) -> torch.Tensor:
+    """Plain version of transpose_batched_cuda: transpose_reference member
+    by member, (E, A, B) -> (E, B, A)."""
+    return torch.stack([transpose_reference(w) for w in W])
+
+
+def transpose_batched_cuda(W: torch.Tensor) -> torch.Tensor:
+    """E tiled transposes in ONE launch (kernels/csrc/transpose.cu, the
+    member on the grid's second axis): contiguous (E, A, B) float32/float64
+    CUDA tensor -> contiguous (E, B, A), exact. Launches on the current
+    stream and does not synchronise. Counts its launches in
+    `transpose_batched_cuda.launches`."""
+    from .. import kernels
+
+    if W.dim() != 3 or W.dtype not in _DTYPE_CODE:
+        raise ValueError("transpose_batched_cuda takes an (E, A, B) "
+                         f"float32/float64 tensor; got {W.dtype} "
+                         f"{tuple(W.shape)}")
+    _require_cuda("transpose_batched_cuda", ("W", W, W.dtype, W.shape))
+    E, A, B = W.shape
+    if E > 65535:
+        raise ValueError(f"transpose_batched_cuda: at most 65535 members, "
+                         f"got {E}")
+    out = torch.empty((E, B, A), dtype=W.dtype, device=W.device)
+    if out.numel() == 0:
+        return out
+    lib = kernels.load()
+    with torch.cuda.device(W.device):
+        err = lib.swr_transpose_batched(
+            _DTYPE_CODE[W.dtype], W.data_ptr(), out.data_ptr(), E, A, B,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "swr_transpose_batched")
+    transpose_batched_cuda.launches += 1
+    return out
+
+
+transpose_batched_cuda.launches = 0
+
+
+def transpose_batched(W: torch.Tensor) -> torch.Tensor:
+    """(E, A, B) -> contiguous (E, B, A): transpose_batched_cuda on a CUDA
+    tensor (one launch), transpose_batched_reference on a CPU tensor."""
+    if W.is_cuda:
+        return transpose_batched_cuda(W.contiguous())
+    return transpose_batched_reference(W)
+
+
+def build_windows_batched_reference(F: torch.Tensor,
+                                    spec: MarchSpec) -> torch.Tensor:
+    """Plain version of build_windows_batched_cuda: build_windows_reference
+    member by member, (E, >= nf, nx, ny) -> (E, nx*ny, K)."""
+    return torch.stack([build_windows_reference(f, spec) for f in F])
+
+
+def build_windows_batched_cuda(F: torch.Tensor,
+                               spec: MarchSpec) -> torch.Tensor:
+    """The one-kernel window build of every member in ONE launch
+    (kernels/csrc/build_windows.cu, the member on the grid's second axis):
+    (E, >= nf, nx, ny) float32/float64 CUDA fields, contiguous -> contiguous
+    (E, nx*ny, K), exactly as build_windows_batched_reference. Launches on
+    the current stream and does not synchronise. Counts its launches in
+    `build_windows_batched_cuda.launches`."""
+    from .. import kernels
+
+    if F.dim() != 4 or F.dtype not in _DTYPE_CODE:
+        raise ValueError("build_windows_batched_cuda takes (E, nf, nx, ny) "
+                         f"float32/float64 fields; got {F.dtype} "
+                         f"{tuple(F.shape)}")
+    _require_cuda("build_windows_batched_cuda", ("F", F, F.dtype, F.shape))
+    E, nf_all, nx, ny = F.shape
+    if nf_all < spec.nf:
+        raise ValueError(f"build_windows_batched_cuda: spec.nf={spec.nf} but "
+                         f"F holds {nf_all} fields")
+    if E > 65535:
+        raise ValueError(f"build_windows_batched_cuda: at most 65535 members, "
+                         f"got {E}")
+    _check_window_fits(nx, ny, spec)
+    out = torch.empty((E, nx * ny, spec.K), dtype=F.dtype, device=F.device)
+    if out.numel() == 0:
+        return out
+    lib = kernels.load()
+    with torch.cuda.device(F.device):
+        # each member's first nf fields are contiguous; members lie
+        # F.stride(0) elements apart
+        err = lib.swr_build_windows_batched(
+            _DTYPE_CODE[F.dtype], F.data_ptr(), out.data_ptr(), E,
+            F.stride(0), spec.nf, nx, ny, spec.SW, spec.order + spec.margin,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "swr_build_windows_batched")
+    build_windows_batched_cuda.launches += 1
+    return out
+
+
+build_windows_batched_cuda.launches = 0
+
+
+def build_windows_batched(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
+    """(E, nf, nx, ny) -> (E, nx*ny, K) in one pass:
+    build_windows_batched_cuda on a CUDA tensor (one launch),
+    build_windows_batched_reference on a CPU tensor."""
+    if F.is_cuda:
+        return build_windows_batched_cuda(F.contiguous(), spec)
+    return build_windows_batched_reference(F, spec)

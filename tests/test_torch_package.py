@@ -42,7 +42,8 @@ def _run(code):
     "swraytracing_torch.io.asyncwriter", "swraytracing_torch.io.checkpoint",
     "swraytracing_torch.analysis", "swraytracing_torch.analysis.device_diag",
     "swraytracing_torch.analysis.spectra",
-    "swraytracing_torch.analysis.plots"])
+    "swraytracing_torch.analysis.plots", "swraytracing_torch.parallel",
+    "swraytracing_torch.parallel.ensemble"])
 def test_import_pulls_in_no_jax(module):
     """Importing the port (and chip_smoke, import only) loads neither jax,
     flax, the JAX package nor matplotlib (which the card's machine does not
