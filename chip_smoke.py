@@ -42,7 +42,26 @@ set to 0 just before it and read just after:
                  batched transpose a step for all members (then a resume,
                  100 steps with the batched one-pass window build as its
                  own path, ensemble_path_fused_build, and the same members
-                 one after another through the solo chunk beside it).
+                 one after another through the solo chunk beside it);
+  grad_path      the differentiable path: the two-layer main path's
+                 configuration differentiated through one flow step and a
+                 chunk of 5, rematerialised and not, w.r.t. the packets'
+                 wavevectors and the PV spectrum (march + transpose in the
+                 forward, again in remat's recompute, the transpose in the
+                 flow gradient's backward; the march's backward is autograd
+                 through its plain version, timed alone as
+                 march_backward_plain), one flow-gradient step of the
+                 one-layer model with the one-pass window build, and the
+                 JAX package's GRAD_r05 configuration (256^2, 2^14 packets,
+                 50 and 250 steps) in float64 and float32 against its
+                 float64 adjoints in GRAD_r05.json;
+  analytic_path  the analytic and spectral evaluators, which launch no
+                 kernel of the port: a frozen run through the
+                 Childress-Soward flow at 2^20 packets against the CPU, the
+                 O(1)-memory reversible integrator against plain autograd,
+                 a gridded frozen run through prebuilt windows and through
+                 the stencil, the bicubic and direct spectral evaluations
+                 against the CPU.
 
 Each phase prints one JSON line. Any failed phase raises, so the exit code
 is non-zero; without a CUDA device the script fails at once and runs
@@ -74,6 +93,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -84,6 +104,7 @@ from swraytracing_torch.analysis.device_diag import (OmegaHistSpec,
                                                      omega_hist_counts)
 from swraytracing_torch.io import binio, runmeta
 from swraytracing_torch.models import qg, qg2, rays
+from swraytracing_torch.models.analytic import childress_soward
 from swraytracing_torch.models.coupled import (CoupledConfig,
                                                coupled_flow_packet_step,
                                                prepare_carry_windows,
@@ -97,7 +118,11 @@ from swraytracing_torch.models.dispersion import Dispersion
 from swraytracing_torch.models.fields import (BlendedFlow, GriddedFlow,
                                               flow_from_psi_grid, flow_from_qk)
 from swraytracing_torch.models.frozen import raytrace_frozen, ring_ics
+from swraytracing_torch.models.reversible import make_reversible_integrator
 from swraytracing_torch.ops import march_rays as mr
+from swraytracing_torch.ops import interp
+from swraytracing_torch.ops.interp import interpolate_cubic
+from swraytracing_torch.ops.nufft import eval_spectrum_and_grad_at
 from swraytracing_torch.ops import march_window as mw
 from swraytracing_torch.ops import spectral as sp
 from swraytracing_torch.ops.grid import SpectralGrid
@@ -218,6 +243,8 @@ MARCH_WRAPPERS = (mw.march_gathered_cuda, mw.march_cuda,
 def reset_launches():
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    mw.transpose_cuda.launches_by_direction = dict.fromkeys(
+        mw.transpose_cuda.launches_by_direction, 0)
     for wrapper in MARCH_WRAPPERS:
         wrapper.launches_by_route = dict.fromkeys(
             wrapper.launches_by_route, 0)
@@ -2012,7 +2039,7 @@ def phase_driver_reference_config(tmp, main_qg1):
     s, c = setup_coupled(cfg)
     if s.march is not None:
         raise AssertionError("the march engaged with fused_march=False")
-    c = prepare_carry_windows(c, s.march, window_threshold(cfg))
+    c = prepare_carry_windows(c, False, s.march, window_threshold(cfg))
     coupled_flow_packet_step(c, s, cfg)       # warm-up (cuFFT plans)
     x0 = c.packet_x.clone()
     torch.cuda.synchronize()
@@ -2466,6 +2493,533 @@ def phase_ensemble_path(tmp):
     return rows, bounds, by_path, routes
 
 
+
+# ---------------------------------------------------------------------------
+# the differentiable path
+# ---------------------------------------------------------------------------
+
+# Flow steps differentiated at full width: one lock-step, and a chunk of 5.
+GRAD_STEPS = (1, 5)
+# The matched configuration of the JAX package's GRAD_r05 study
+# (benchmarks/gradscience_r05.py:40-60): dt pinned to the file's value,
+# L(a) = var(omega_final) for qk0 -> a*qk0, remat, 50 and 250 flow steps.
+GRAD_R05 = dict(nx=256, n_packets=2 ** 14, T_Fr_days=6000.0,
+                packet_delay_days=0.01, U_g=0.4, f=3.0, Cg=1.0,
+                window_min_np=2 ** 13)
+GRAD_R05_SAVES = (10, 50)   # x packet_steps_per_save=5: 50, 250 flow steps
+ROOT = Path(__file__).resolve().parent
+GRAD_R05_DTPIN = ROOT / "benchmarks" / "gradscience_r05.dtpin"
+GRAD_R05_JSON = ROOT / "GRAD_r05.json"
+# bounds on dL/da: float64 against its own central difference at 50 steps,
+# against the JAX package's float64 CPU adjoint at 50 / 250 steps, and
+# float32 against float64 (the JAX package's float32 read 0.55% / 0.65%)
+GRAD_R05_FD_EPS, GRAD_R05_FD_RTOL = 1e-5, 1e-3
+GRAD_R05_JAX_RTOL = {50: 1e-6, 250: 1e-4}
+GRAD_R05_F32_RTOL = 2e-2
+# float64 gradients of the O(1)-memory integrator against plain autograd
+REVERSIBLE_RTOL = 1e-8
+
+
+def grad_counts():
+    """The launch counts, with the transpose kernel's split by direction."""
+    counts = read_launches()
+    counts["transpose_in_backward"] = \
+        mw.transpose_cuda.launches_by_direction["backward"]
+    return counts
+
+
+def with_grad_leaf(carry, wrt):
+    """A copy of `carry` whose packet_k ("packet_k") or PV spectrum ("qk")
+    is a fresh leaf that requires grad; returns (carry, leaf)."""
+    if wrt == "packet_k":
+        leaf = carry.packet_k.detach().clone().requires_grad_(True)
+        return dataclasses.replace(carry, packet_k=leaf), leaf
+    leaf = carry.flow_state.qk.detach().clone().requires_grad_(True)
+    return dataclasses.replace(carry, flow_state=dataclasses.replace(
+        carry.flow_state, qk=leaf)), leaf
+
+
+def expected_grad_launches(steps, wrt, remat, window):
+    """Launches of one differentiated chunk of `steps` flow steps: K1 once a
+    step; the window kernel (`window`: "transpose" K2, or "build_windows"
+    K3) once a step for the new snapshot, twice under remat (the carry
+    holds no windows, so each step builds both snapshots'); the backward
+    recomputes each step under remat; K2 runs again in the backward once
+    for each forward transpose whose windows need a gradient (the flow
+    gradient): all but the first step's blend-start windows, which come
+    from the carry's fields and do not depend on qk. K3's backward is the
+    plain build's transpose."""
+    per_step = 2 if remat else 1
+    forward = dict.fromkeys(WRAPPERS, 0)
+    forward["march"] = steps
+    forward[window] = per_step * steps
+    recompute = {k: v if remat else 0 for k, v in forward.items()}
+    backward = (per_step * steps - (1 if remat else 0)
+                if wrt == "qk" and window == "transpose" else 0)
+    return forward, recompute, backward
+
+
+def differentiate(run_chunk, s, cfg, carry, steps, wrt, remat, window):
+    """Loss sum(pk^2)*1e-6 after `steps` flow steps from `carry`,
+    differentiated w.r.t. packet_k or qk by autograd.grad, with remat or
+    without: after one warm-up, the forward and the backward each between
+    CUDA events, the peak bytes over both, the launches of the forward and
+    those made during the backward (recompute and backward counted
+    apart)."""
+    c_cfg = cfg._replace(packet_steps_per_save=steps)
+
+    def forward():
+        c, leaf = with_grad_leaf(carry, wrt)
+        c2, _ = run_chunk(c, s, c_cfg, 1, remat=remat)
+        return (c2.packet_k * c2.packet_k).sum() * 1e-6, leaf, c2
+
+    loss, leaf, _ = forward()
+    torch.autograd.grad(loss, leaf)
+    del loss, leaf
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    before = grad_counts()
+    e0.record()
+    loss, leaf, c2 = forward()
+    e1.record()
+    mid = grad_counts()
+    (g,) = torch.autograd.grad(loss, leaf)
+    e2.record()
+    torch.cuda.synchronize()
+    after = grad_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fwd = {k: mid[k] - before[k] for k in before}
+    bwd = {k: after[k] - mid[k] for k in before}
+    launches = {
+        "forward": {k: v for k, v in fwd.items()
+                    if k != "transpose_in_backward"},
+        "recompute": {k: bwd[k] - (bwd["transpose_in_backward"]
+                                   if k == "transpose" else 0)
+                      for k in bwd if k != "transpose_in_backward"},
+        "backward": {"transpose": bwd["transpose_in_backward"]}}
+    want_f, want_r, want_b = expected_grad_launches(steps, wrt, remat,
+                                                    window)
+    label = f"grad_path {window} {steps} steps d/d{wrt} remat={remat}"
+    if (launches["forward"] != want_f or launches["recompute"] != want_r
+            or launches["backward"]["transpose"] != want_b
+            or fwd["transpose_in_backward"] != 0):
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"forward {want_f}, recompute {want_r}, "
+                             f"transpose in the backward {want_b}")
+    if not (torch.isfinite(torch.view_as_real(g) if g.is_complex() else g)
+            .all() and bool(torch.isfinite(loss)) and float(g.abs().max()) > 0):
+        raise AssertionError(f"{label}: gradient not finite or zero")
+    if int(c2.overflow) != 0:
+        raise AssertionError(f"{label}: march overflow {int(c2.overflow)}")
+    return dict(forward_ms=e0.elapsed_time(e1), backward_ms=e1.elapsed_time(e2),
+                fwd_bwd_ms=e0.elapsed_time(e2), peak_memory_bytes=peak,
+                peak_above_start_bytes=peak - base,
+                grad_abs_max=float(g.abs().max()), loss=float(loss.detach()),
+                launches=launches)
+
+
+def march_backward_plain(s, carry):
+    """The march's backward at the main shape, alone: autograd through
+    march_gathered_reference on the saved inputs (mw._march_backward, what
+    fused_march_gathered's backward runs; there is no backward kernel, as
+    in the JAX package), w.r.t. both window arrays and the packets (the
+    flow gradient) and w.r.t. the packets alone. Median of 3 between CUDA
+    events after one warm-up, and the peak bytes above its inputs."""
+    spec = s.march
+    win1 = carry.prev_win.detach()
+    win2 = win1.clone()
+    xk = torch.cat([carry.packet_x, carry.packet_k]).detach()
+    oi, oj = mw.packet_cells(xk[0], xk[1], spec)
+    ct = torch.randn(xk.shape, dtype=xk.dtype, device=xk.device,
+                     generator=torch.Generator(xk.device).manual_seed(5))
+    out = {}
+    for name, needs in (("windows_and_packets", (True, True, True)),
+                        ("packets", (False, False, True))):
+        ctx = types.SimpleNamespace(
+            saved_tensors=(win1, win2, xk, oi, oj), sub_dt=s.dt / 2,
+            spec=spec, needs_input_grad=(*needs, False, False, False, False))
+        fn = lambda: mw._march_backward(ctx, mw.march_gathered_reference, ct)
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if not all(bool(torch.isfinite(g).all()) for g in grads
+                   if g is not None):
+            raise AssertionError("march_backward_plain: not finite")
+        del grads
+        out[name] = dict(ms=cuda_ms(fn, 3), peak_above_inputs_bytes=peak)
+    return dict(out, route="plain (autograd through march_gathered_reference)",
+                shapes=dict(win=list(win1.shape), xk=list(xk.shape)))
+
+
+def grad_r05_dt():
+    return float(GRAD_R05_DTPIN.read_text())
+
+
+def grad_r05_reference():
+    """The JAX package's float64 CPU adjoints dL/da at 50 and 250 steps."""
+    data = json.loads(GRAD_R05_JSON.read_text())["horizon_ad"]
+    return {int(n): row["cpu64_ad"] for n, row in data.items()}
+
+
+def grad_r05_run(dtype, dev):
+    """GRAD_r05's matched configuration on the card in `dtype`: dL/da by
+    autograd through run_coupled_chunk(remat=True) at 50 and 250 flow
+    steps (seconds of the forward alone and of forward + backward, host
+    clock to a synchronisation, after a one-save warm-up), and in float64
+    the central difference at 50 steps."""
+    cfg = CoupledConfig(**GRAD_R05)
+    s, carry0 = setup_coupled(cfg, device=dev, dtype=dtype)
+    if s.march is None:
+        raise AssertionError("GRAD_r05: the march must be engaged")
+    s = s._replace(dt=grad_r05_dt())
+    real = carry0.flow_state.qk.real.dtype
+
+    def loss(a, n_saves):
+        qk = a.to(real) * carry0.flow_state.qk
+        c = dataclasses.replace(carry0, flow_state=dataclasses.replace(
+            carry0.flow_state, qk=qk))
+        c2, _ = run_coupled_chunk(c, s, cfg, n_saves, remat=True)
+        if int(c2.overflow) != 0:
+            raise AssertionError(f"GRAD_r05: march overflow "
+                                 f"{int(c2.overflow)}")
+        om = torch.sqrt(cfg.f ** 2 + cfg.Cg ** 2 * (c2.packet_k[0] ** 2
+                                                    + c2.packet_k[1] ** 2))
+        return torch.var(om, correction=0)
+
+    one = torch.tensor(1.0, dtype=torch.float64, device=dev)
+    with torch.no_grad():
+        float(loss(one, 1))        # warm-up: cuFFT plans at this shape
+    rows = {}
+    for n_saves in GRAD_R05_SAVES:
+        steps = n_saves * cfg.packet_steps_per_save
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            L = float(loss(one, n_saves))
+        forward_s = time.perf_counter() - t0
+        a = one.clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        (g,) = torch.autograd.grad(loss(a, n_saves), a)
+        g = float(g)
+        rows[steps] = dict(loss=L, dloss_da_ad=g, forward_s=forward_s,
+                           fwd_plus_bwd_s=time.perf_counter() - t0)
+        if not np.isfinite(g) or g == 0.0:
+            raise AssertionError(f"GRAD_r05 {dtype} {steps}: dL/da = {g}")
+    if dtype == torch.float64:
+        eps = GRAD_R05_FD_EPS
+        with torch.no_grad():
+            fd = (float(loss(one + eps, GRAD_R05_SAVES[0]))
+                  - float(loss(one - eps, GRAD_R05_SAVES[0]))) / (2 * eps)
+        row = rows[GRAD_R05_SAVES[0] * cfg.packet_steps_per_save]
+        row.update(dloss_da_fd=fd, fd_eps=eps,
+                   ad_vs_fd_rel=abs(row["dloss_da_ad"] - fd) / abs(fd))
+    return dict(dt=s.dt, rows=rows)
+
+
+def phase_grad_path(dev):
+    """The differentiable path on the card, the launch counts set to 0 just
+    before and read just after: (a) the two-layer main path's
+    configuration at full width, one flow step and a chunk of 5, each
+    rematerialised and not, differentiated w.r.t. the packets' wavevectors
+    and w.r.t. the PV spectrum (the flow gradient: K2 runs again in the
+    backward); the march's plain backward alone; one flow-gradient step of
+    the one-layer model with the one-pass window build (K3). (b) GRAD_r05's
+    matched configuration in float64 and float32, against its own finite
+    difference and the JAX package's float64 adjoint."""
+    reset_launches()
+    t_phase = time.perf_counter()
+    cfg = Coupled2Config(**FULL)
+    s, carry = setup_coupled2(cfg, device=dev, dtype=torch.float32)
+    with torch.no_grad():   # past the packets' release: they see the flow
+        carry, _ = run_coupled2_chunk(carry, s, cfg, 1)
+    if not carry.flow_state.t > s.packet_delay:
+        raise AssertionError("grad_path: packets not released yet")
+    two_layer = {}
+    for steps in GRAD_STEPS:
+        for wrt in ("packet_k", "qk"):
+            for remat in (False, True):
+                two_layer[f"{steps}_steps_d_{wrt}_remat_{remat}"] = \
+                    differentiate(run_coupled2_chunk, s, cfg, carry, steps,
+                                  wrt, remat, "transpose")
+    peaks = {}
+    for wrt in ("packet_k", "qk"):
+        plain = two_layer[f"5_steps_d_{wrt}_remat_False"]
+        remat = two_layer[f"5_steps_d_{wrt}_remat_True"]
+        peaks[wrt] = dict(plain=plain["peak_memory_bytes"],
+                          remat=remat["peak_memory_bytes"],
+                          remat_below_plain_by_bytes=(
+                              plain["peak_memory_bytes"]
+                              - remat["peak_memory_bytes"]))
+        if not remat["peak_memory_bytes"] < plain["peak_memory_bytes"]:
+            raise AssertionError(f"grad_path: remat's peak over 5 steps "
+                                 f"(d/d{wrt}) is not below the plain "
+                                 f"run's: {peaks[wrt]}")
+    plain_bwd = march_backward_plain(s, carry)
+    step_bwd = two_layer["1_steps_d_qk_remat_False"]["backward_ms"]
+    plain_bwd["share_of_one_step_flow_gradient_backward"] = (
+        plain_bwd["windows_and_packets"]["ms"] / step_bwd)
+    del s, carry
+    cfg1 = CoupledConfig(march_fused_build=True, **FULL)
+    s1, carry1 = setup_coupled(cfg1, device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        carry1, _ = run_coupled_chunk(carry1, s1, cfg1, 1)
+    one_layer = differentiate(run_coupled_chunk, s1, cfg1, carry1, 1, "qk",
+                              False, "build_windows")
+    del s1, carry1
+    full_width_s = time.perf_counter() - t_phase
+
+    ref = grad_r05_reference()
+    r05 = {name: grad_r05_run(dtype, dev)
+           for name, dtype in (("float64", torch.float64),
+                               ("float32", torch.float32))}
+    checks = {}
+    for steps, want in sorted(ref.items()):
+        g64 = r05["float64"]["rows"][steps]["dloss_da_ad"]
+        g32 = r05["float32"]["rows"][steps]["dloss_da_ad"]
+        checks[steps] = dict(jax_cpu64_ad=want, rel_float64_vs_jax=abs(
+            g64 - want) / abs(want), rel_float32_vs_float64=abs(g32 - g64)
+            / abs(g64))
+        if not checks[steps]["rel_float64_vs_jax"] <= GRAD_R05_JAX_RTOL[steps]:
+            raise AssertionError(f"GRAD_r05 {steps} steps: float64 {g64} "
+                                 f"against the JAX package's {want}")
+        if not checks[steps]["rel_float32_vs_float64"] <= GRAD_R05_F32_RTOL:
+            raise AssertionError(f"GRAD_r05 {steps} steps: float32 {g32} "
+                                 f"against float64 {g64}")
+    fd_rel = r05["float64"]["rows"][50]["ad_vs_fd_rel"]
+    if not fd_rel <= GRAD_R05_FD_RTOL:
+        raise AssertionError(f"GRAD_r05: float64 AD against FD {fd_rel}")
+    launches = read_launches()
+    for name in ("march", "transpose", "build_windows"):
+        if launches[name] < 1:
+            raise AssertionError(f"grad_path launched no {name}")
+    emit("grad_path", config=dict(FULL, dtype="float32", model="two-layer"),
+         two_layer=two_layer, remat_peak_5_steps=peaks,
+         march_backward_plain=plain_bwd,
+         one_layer_fused_build_1_step_d_qk=one_layer,
+         full_width_seconds=full_width_s,
+         grad_r05=dict(config=GRAD_R05, dt_pin=grad_r05_dt(), runs=r05,
+                       checks=checks, rtol=dict(
+                           fd=GRAD_R05_FD_RTOL, jax=GRAD_R05_JAX_RTOL,
+                           float32=GRAD_R05_F32_RTOL)),
+         launches=launches,
+         transpose_launches_by_direction=dict(
+             mw.transpose_cuda.launches_by_direction),
+         seconds=time.perf_counter() - t_phase)
+    return launches, dict(mw.transpose_cuda.launches_by_direction)
+
+
+# ---------------------------------------------------------------------------
+# the analytic and spectral evaluators
+# ---------------------------------------------------------------------------
+
+ANALYTIC = dict(n_packets=2 ** 20, dt=0.01, steps=500, save_every=100,
+                cpu_packets=4096, atol=1e-9)
+REVERSIBLE = dict(n_packets=2 ** 14, dt=0.01, steps=(250, 1000))
+GRIDDED = dict(nx=512, n_packets=2 ** 20, dt=1e-3, steps=20, Kd2=3.0)
+
+
+@contextlib.contextmanager
+def window_threshold_at(n_packets):
+    """raytrace_frozen's switch to prebuilt windows moved to `n_packets`
+    for the duration (a measurement of the path it switches away from)."""
+    old = interp._WINDOW_MIN_NP
+    interp._WINDOW_MIN_NP = n_packets
+    try:
+        yield
+    finally:
+        interp._WINDOW_MIN_NP = old
+
+
+def synced_seconds(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def reversible_vs_plain(dev, disp, steps):
+    """dL/dU0 and dL/dk0 after `steps` symplectic steps of 2^14 packets
+    through the Childress–Soward flow in float64, by the O(1)-memory
+    integrator and by plain autograd through the loop, each with its
+    seconds and its peak bytes above the inputs."""
+    x0, k0 = ring_ics(REVERSIBLE["n_packets"], 2.0, disp, device=dev,
+                      dtype=torch.float64)
+    dt = REVERSIBLE["dt"]
+    out = {}
+    for name in ("reversible", "plain"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            U0 = torch.tensor(0.12, dtype=torch.float64, device=dev,
+                              requires_grad=True)
+            k = k0.clone().requires_grad_(True)
+            flow = childress_soward(U0=U0, device=dev, dtype=torch.float64)
+            if name == "reversible":
+                xN, kN = make_reversible_integrator(disp, dt, steps)(
+                    x0, k, flow)
+            else:
+                xN, kN = x0, k
+                for _ in range(steps):
+                    xN, kN = rays.symplectic_step(xN, kN, dt, disp, flow)
+            loss = (kN * kN).mean() + (torch.sin(xN) ** 2).mean()
+            return torch.autograd.grad(loss, (U0, k))
+
+        (gU, gk), seconds = synced_seconds(run)
+        out[name] = dict(seconds=seconds, dloss_dU0=float(gU), gk=gk,
+                         peak_above_inputs_bytes=(
+                             torch.cuda.max_memory_allocated() - base))
+    gk_r, gk_p = out["reversible"].pop("gk"), out["plain"].pop("gk")
+    rel_U0 = abs(out["reversible"]["dloss_dU0"] - out["plain"]["dloss_dU0"]) \
+        / abs(out["plain"]["dloss_dU0"])
+    rel_k0 = float((gk_r - gk_p).abs().max() / gk_p.abs().max())
+    if not (rel_U0 <= REVERSIBLE_RTOL and rel_k0 <= REVERSIBLE_RTOL):
+        raise AssertionError(f"reversible against plain autograd, {steps} "
+                             f"steps: U0 {rel_U0}, k0 {rel_k0}")
+    return dict(out, rel_dU0=rel_U0, rel_dk0_max_over_max=rel_k0)
+
+
+def phase_analytic_path(dev):
+    """The analytic and spectral evaluators on the card, the launch counts
+    set to 0 just before and read just after (no kernel of the port
+    runs): raytrace_frozen through the Childress–Soward flow at 2^20
+    packets against the same run of the first 4096 packets on the CPU;
+    the O(1)-memory integrator against plain autograd; raytrace_frozen
+    through a gridded 512^2 snapshot through prebuilt windows (its switch
+    from interp._WINDOW_MIN_NP packets, as the JAX package's) and through
+    the stencil (the switch moved past the packet count), the reading the
+    switch was taken by; interpolate_cubic and the direct spectral evaluation
+    against the CPU."""
+    reset_launches()
+    t_phase = time.perf_counter()
+    disp = Dispersion(f=3.0, Cg=1.0)
+    f64 = torch.float64
+    # (1) analytic frozen run, float64
+    n_p, dt, steps, every = (ANALYTIC[k] for k in ("n_packets", "dt", "steps",
+                                                   "save_every"))
+    x0, k0 = ring_ics(n_p, 2.0, disp, device=dev, dtype=f64)
+    flow = childress_soward(device=dev, dtype=f64)
+    res, frozen_s = synced_seconds(lambda: raytrace_frozen(
+        flow, x0, k0, disp, dt, steps, save_every=every))
+    n_c = ANALYTIC["cpu_packets"]
+    res_c = raytrace_frozen(childress_soward(device="cpu", dtype=f64),
+                            x0[:, :n_c].cpu(), k0[:, :n_c].cpu(), disp, dt,
+                            steps, save_every=every)
+    err_x = float((res.x[..., :n_c].cpu() - res_c.x).abs().max())
+    err_k = float((res.k[..., :n_c].cpu() - res_c.k).abs().max())
+    if not max(err_x, err_k) <= ANALYTIC["atol"]:
+        raise AssertionError(f"analytic frozen run, card against CPU: "
+                             f"x {err_x}, k {err_k}")
+    cons = float(res.conservation_error[-1])
+    if not (np.isfinite(cons) and cons < 1e-2
+            and bool(torch.isfinite(res.x).all())):
+        raise AssertionError(f"analytic frozen run: conservation error "
+                             f"{cons}")
+    moved = float((res.x[-1] - x0).abs().max())
+    analytic_run = dict(n_packets=n_p, dt=dt, steps=steps, dtype="float64",
+                        seconds=frozen_s,
+                        packet_steps_per_s=n_p * steps / frozen_s,
+                        conservation_error_last=cons,
+                        max_packet_displacement=moved,
+                        card_vs_cpu_first_packets=n_c,
+                        max_abs_dx=err_x, max_abs_dk=err_k,
+                        atol=ANALYTIC["atol"])
+    del res, x0, k0
+    # (2) the reversible integrator against plain autograd
+    reversible = {n: reversible_vs_plain(dev, disp, n)
+                  for n in REVERSIBLE["steps"]}
+    short, long_ = (reversible[n]["reversible"]["peak_above_inputs_bytes"]
+                    for n in REVERSIBLE["steps"])
+    if not long_ <= 1.1 * short:
+        raise AssertionError(f"the reversible integrator's peak grows with "
+                             f"the steps: {short} -> {long_} bytes")
+    # (3) a gridded snapshot through the stencil and through windows
+    grid = SpectralGrid.square(GRIDDED["nx"])
+    qk = qg.initial_q_ring(146, grid, 0.4, GRIDDED["Kd2"], device=dev,
+                           dtype=torch.float32)
+    gflow = flow_from_qk(qk, grid, GRIDDED["Kd2"])
+    gx0, gk0 = ring_ics(GRIDDED["n_packets"], 2.0, disp, device=dev,
+                        dtype=torch.float32)
+    gdt, gsteps = GRIDDED["dt"], GRIDDED["steps"]
+    # raytrace_frozen builds the windows itself from
+    # interp._WINDOW_MIN_NP packets on (timed with the run); the stencil
+    # run raises that threshold past the packet count
+    if GRIDDED["n_packets"] < interp._WINDOW_MIN_NP:
+        raise AssertionError("gridded frozen run: below the window switch")
+    stencil_only = GRIDDED["n_packets"] + 1
+    ways = {"stencil": lambda: window_threshold_at(stencil_only),
+            "windowed": contextlib.nullcontext}
+    gridded = {}
+    finals = {}
+    for name in ("stencil", "windowed", "windowed", "stencil"):
+        def run():
+            with ways[name]():
+                return raytrace_frozen(gflow, gx0, gk0, disp, gdt, gsteps,
+                                       save_every=gsteps)
+        if name not in finals:
+            run()                                      # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        r, seconds = synced_seconds(run)
+        finals[name] = (r.x[-1], r.k[-1])
+        gridded.setdefault(name, dict(seconds=[], peak_memory_bytes=0))
+        gridded[name]["seconds"].append(seconds)
+        gridded[name]["peak_memory_bytes"] = max(
+            gridded[name]["peak_memory_bytes"],
+            torch.cuda.max_memory_allocated())
+    dx = float((finals["windowed"][0] - finals["stencil"][0]).abs().max())
+    dk = float((finals["windowed"][1] - finals["stencil"][1]).abs().max())
+    if not max(dx, dk) <= 1e-4:
+        raise AssertionError(f"gridded frozen run, windowed against "
+                             f"stencil: x {dx}, k {dk}")
+    best = {n: min(v["seconds"]) for n, v in gridded.items()}
+    gridded_run = dict(GRIDDED, dtype="float32", ways=gridded,
+                       windowed_over_stencil=best["windowed"]
+                       / best["stencil"],
+                       faster="windowed" if best["windowed"]
+                       < best["stencil"] else "stencil",
+                       max_abs_dx=dx, max_abs_dk=dk)
+    del gflow, gx0, gk0, finals
+    # (4) interpolate_cubic and the direct spectral evaluation, card vs CPU
+    rng = np.random.default_rng(17)
+    cgrid = SpectralGrid.square(512)
+    F = torch.as_tensor(smooth_fields(rng, 2, 512), dtype=f64)
+    px = torch.as_tensor(rng.uniform(-7.0, 14.0, (2, 2 ** 16)), dtype=f64)
+    cub = [interpolate_cubic(F.to(d), px[0].to(d), px[1].to(d), cgrid)
+           for d in (dev, "cpu")]
+    cubic_err = float((cub[0].cpu() - cub[1]).abs().max())
+    ngrid = SpectralGrid.square(64)
+    fk = sp.to_spectral(torch.as_tensor(smooth_fields(rng, 1, 64)[0],
+                                        dtype=f64), ngrid)
+    npx = torch.as_tensor(rng.uniform(-7.0, 14.0, (2, 4096)), dtype=f64)
+    spec = [eval_spectrum_and_grad_at(fk.to(d), npx[0].to(d), npx[1].to(d),
+                                      ngrid) for d in (dev, "cpu")]
+    spec_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                   for a, b in zip(*spec))
+    if not (cubic_err <= 1e-12 and spec_err <= 1e-12):
+        raise AssertionError(f"card against CPU: interpolate_cubic "
+                             f"{cubic_err}, eval_spectrum_and_grad_at "
+                             f"{spec_err}")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"analytic_path launched a kernel: {launches}")
+    emit("analytic_path", analytic_frozen=analytic_run,
+         reversible=reversible, gridded_frozen=gridded_run,
+         card_vs_cpu=dict(
+             interpolate_cubic=dict(grid=512, points=2 ** 16,
+                                    max_abs_err=cubic_err),
+             eval_spectrum_and_grad_at=dict(grid=64, points=4096,
+                                            max_rel_err=spec_err)),
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -2500,10 +3054,14 @@ def main():
             phase_ensemble_path(tmp)
     rows += rows_ens
     bounds.update(bounds_ens)
+    launches_grad, transpose_by_direction = phase_grad_path(dev)
+    launches_analytic = phase_analytic_path(dev)
     # launches: over the main paths, each counted from 0
     by_path = {"main_path": launches_two, "main_path_qg1": launches_one,
                "frozen_path": launches_rays, "driver_path": launches_driver,
-               "driver_reference_config": launches_ref, **launches_ens}
+               "driver_reference_config": launches_ref, **launches_ens,
+               "grad_path": launches_grad,
+               "analytic_path": launches_analytic}
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
@@ -2513,6 +3071,9 @@ def main():
                                                 "main_path_qg1": routes_one}
         if row["name"] == "march_batched":
             row["launches_by_route_by_path"] = {"ensemble_path": routes_ens}
+        if row["name"] == "transpose":
+            row["launches_by_direction_by_path"] = {
+                "grad_path": transpose_by_direction}
         if row["launches"] < 1:
             raise AssertionError(f"no main path launched {row['name']}")
     emit("kernel_bounds", hbm_bytes_per_s=HBM_BYTES_PER_S,

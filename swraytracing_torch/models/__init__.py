@@ -1,6 +1,6 @@
-from . import (coupled, coupled2, dispersion, fields, frozen, qg, qg2,
-               rays)
+from . import (analytic, coupled, coupled2, dispersion, fields, frozen, qg,
+               qg2, rays, reversible)
 from .dispersion import Dispersion
 
-__all__ = ["coupled", "coupled2", "dispersion", "fields", "frozen", "qg",
-           "qg2", "rays", "Dispersion"]
+__all__ = ["analytic", "coupled", "coupled2", "dispersion", "fields",
+           "frozen", "qg", "qg2", "rays", "reversible", "Dispersion"]

@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..ops.grid import SpectralGrid, resolve_device
 from ..ops import interp as _interp
@@ -56,11 +57,6 @@ __all__ = ["CoupledConfig", "CoupledSetup", "CoupledCarry", "setup_coupled",
            "ring_packet_ics", "build_march_spec", "window_threshold",
            "march_n_fields", "prepare_carry_windows", "lockstep_step",
            "run_lockstep_chunk"]
-
-# Packet count from which the window-based paths engage when a config does
-# not say (the default of the configs' window_min_np field).
-_WINDOW_MIN_NP = 65536
-
 
 class CoupledConfig(NamedTuple):
     """Mirrors the qgsw_raytrace positional signature
@@ -198,7 +194,7 @@ def build_march_spec(cfg, grid: SpectralGrid, dt: float, U0: float):
 
 def window_threshold(cfg) -> int:
     """The engagement threshold for window-based paths, from the config."""
-    return getattr(cfg, "window_min_np", _WINDOW_MIN_NP)
+    return getattr(cfg, "window_min_np", _interp._WINDOW_MIN_NP)
 
 
 def march_n_fields(march) -> int:
@@ -262,7 +258,7 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
     overflow counter.
     """
     if window_min_np is None:
-        window_min_np = _WINDOW_MIN_NP
+        window_min_np = _interp._WINDOW_MIN_NP
     new_state = flow_step_fn(carry.flow_state)
     fields2 = fields_fn(new_state)
     Np = carry.packet_x.shape[-1]
@@ -393,7 +389,7 @@ def _march_step(carry, new_state, fields2, sub_dt, n_substeps, stepper,
                         prev_win=out_win, overflow=overflow)
 
 
-def prepare_carry_windows(carry: CoupledCarry,
+def prepare_carry_windows(carry: CoupledCarry, remat: bool = False,
                           march: mw.MarchSpec | None = None,
                           window_min_np: int | None = None) -> CoupledCarry:
     """Make the carry's window/overflow slots consistent with the path
@@ -403,9 +399,19 @@ def prepare_carry_windows(carry: CoupledCarry,
     only for its new snapshot; an overflow counter starting at 0 on the
     fused march and none on the per-stage path. Returns a new carry where
     anything changes. An ensemble's carry gets its windows built for all
-    members and one overflow counter per member, (E,)."""
+    members and one overflow counter per member, (E,).
+
+    remat (differentiable chunks rematerialised step by step) strips the
+    window slot instead: each step's inputs are what the checkpoint keeps
+    for the backward, and a carried window array would cost a window
+    array per step (128 MB at 512^2, nf=2, float32). Each step then builds
+    both snapshots' windows itself, and builds them again when the
+    backward recomputes it."""
+    if not isinstance(remat, bool):
+        raise TypeError("prepare_carry_windows(carry, remat, march, "
+                        f"window_min_np): remat is a bool, got {remat!r}")
     if window_min_np is None:
-        window_min_np = _WINDOW_MIN_NP
+        window_min_np = _interp._WINDOW_MIN_NP
     march_on = march is not None
     if march_on and carry.overflow is None:
         carry = dataclasses.replace(carry, overflow=torch.zeros(
@@ -414,6 +420,11 @@ def prepare_carry_windows(carry: CoupledCarry,
     if not march_on and carry.overflow is not None:
         carry = dataclasses.replace(carry, overflow=None)
     win = carry.prev_win
+    engaged = march_on or carry.packet_x.shape[-1] >= window_min_np
+    if remat or not engaged:
+        if win is not None:
+            return dataclasses.replace(carry, prev_win=None)
+        return carry
     if march_on:
         # Stale-window check must follow the window layout:
         # tiles_transposed stores (ncells, K), otherwise (K, ncells).
@@ -422,13 +433,9 @@ def prepare_carry_windows(carry: CoupledCarry,
             return dataclasses.replace(carry, prev_win=mw.build_gather_windows(
                 carry.prev_fields, march))
         return carry
-    if carry.packet_x.shape[-1] >= window_min_np:
-        if win is None:
-            return dataclasses.replace(
-                carry, prev_win=_interp.build_windows(carry.prev_fields))
-        return carry
-    if win is not None:
-        return dataclasses.replace(carry, prev_win=None)
+    if win is None:
+        return dataclasses.replace(
+            carry, prev_win=_interp.build_windows(carry.prev_fields))
     return carry
 
 
@@ -438,12 +445,21 @@ def run_lockstep_chunk(carry: CoupledCarry, step_fn, march,
                        window_min_np: int | None = None):
     """The chunk loop both models share: n_saves * steps_per_save calls of
     `step_fn` (carry -> carry), one save after every steps_per_save. See
-    run_coupled_chunk for what it returns."""
+    run_coupled_chunk for what it returns.
+
+    remat=True runs each call of step_fn under a non-reentrant
+    torch.utils.checkpoint: the backward keeps each step's input carry
+    only and recomputes the step from it (the JAX package's
+    jax.checkpoint per lock-step). `t` and `step` are host scalars, so
+    the recomputation repeats the forward's arithmetic exactly."""
+    carry = prepare_carry_windows(carry, remat, march, window_min_np)
     if remat:
-        raise NotImplementedError(
-            "rematerialised differentiable chunks (remat=True) are not "
-            "ported yet: ROADMAP item A10")
-    carry = prepare_carry_windows(carry, march, window_min_np)
+        plain_step = step_fn
+
+        def step_fn(c):
+            return torch.utils.checkpoint.checkpoint(
+                plain_step, c, use_reentrant=False,
+                preserve_rng_state=False)
     saves, ts = [], []
     for _ in range(n_saves):
         for _ in range(steps_per_save):
@@ -538,8 +554,14 @@ def run_coupled_chunk(carry: CoupledCarry, s: CoupledSetup,
     save emits (diag, t) INSTEAD of the full packet arrays and the return
     becomes (carry, (diag (n_saves, ...), t (n_saves,))).
 
-    remat=True (rematerialised reverse-mode differentiation) is not
-    ported yet and raises NotImplementedError."""
+    remat=True rematerialises each lock-step in reverse-mode
+    differentiation (run_lockstep_chunk): gradient memory drops from one
+    step's whole set of intermediates per step to one carry per step, at
+    the price of running each step's forward twice. Forward-only runs
+    leave it off. The carry comes back without windows (prev_win None).
+    Differentiate a scalar of the result by `.backward()` or
+    torch.autograd.grad; for a complex leaf such as `qk` PyTorch's
+    gradient is the complex conjugate of jax.grad's."""
     return run_lockstep_chunk(
         carry, lambda c: coupled_flow_packet_step(c, s, cfg), s.march,
         cfg.packet_steps_per_save, n_saves, remat, diag_fn,

@@ -172,8 +172,8 @@ def run_coupled2_chunk(carry: CoupledCarry, s: Coupled2Setup,
     save emits (diag, t) INSTEAD of the full packet arrays and the return
     becomes (carry, (diag (n_saves, ...), t (n_saves,))).
 
-    remat=True (rematerialised reverse-mode differentiation) is not
-    ported yet and raises NotImplementedError."""
+    remat=True rematerialises each lock-step in reverse-mode
+    differentiation (see run_coupled_chunk)."""
     return run_lockstep_chunk(
         carry, lambda c: coupled2_flow_packet_step(c, s, cfg), s.march,
         cfg.packet_steps_per_save, n_saves, remat, diag_fn,

@@ -14,7 +14,9 @@ packet path of models/coupled.py. Both flows take prebuilt interpolation
 windows (`.windowed()`, ops/interp.build_windows), which the coupled
 models use from `window_min_np` packets on. The fused packet march
 (ops/march_window.py) interpolates from the grids itself and does not go
-through `.at`. `AnalyticFlow` is not part of this module yet.
+through `.at`. `AnalyticFlow` evaluates a closed-form streamfunction
+(models/analytic.py): velocities and gradients by autograd, exact and
+differentiable w.r.t. its parameters.
 
 An ensemble's members (parallel/ensemble.py) carry (E, nf, nx, ny) grids:
 `flow_from_qk` takes (E, nx, nky) spectra, and `BlendedFlow.at` evaluates
@@ -24,7 +26,7 @@ member e's grids at positions (E, Np) row e, giving (E, Np) values.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -34,8 +36,8 @@ from ..ops.interp import (stencil_and_weights, interp_stencil_apply,
                           build_windows, interp_windowed)
 from .qg import _psik
 
-__all__ = ["FlowEval", "GriddedFlow", "BlendedFlow", "flow_from_qk",
-           "flow_from_psik", "flow_from_psi_grid"]
+__all__ = ["FlowEval", "GriddedFlow", "BlendedFlow", "AnalyticFlow",
+           "flow_from_qk", "flow_from_psik", "flow_from_psi_grid"]
 
 # Field stacking order used throughout: [u, v, u_x, u_y, v_x, v_y].
 U, V, UX, UY, VX, VY = range(6)
@@ -63,6 +65,22 @@ class FlowEval(NamedTuple):
         return torch.stack(
             [self.u_x * kk + self.v_x * ll, self.u_y * kk + self.v_y * ll],
             dim=0)
+
+    # Derived diagnostics (RaytracingScheme.m:18-31)
+    @property
+    def vorticity(self):
+        return self.v_x - self.u_y
+
+    @property
+    def strain(self):
+        return torch.sqrt((self.u_x - self.v_y) ** 2
+                          + (self.v_x + self.u_y) ** 2)
+
+    @property
+    def okubo_weiss(self):
+        # sigma^2 - zeta^2 in the standard convention
+        return (self.u_x - self.v_y) ** 2 + (self.v_x + self.u_y) ** 2 \
+            - (self.v_x - self.u_y) ** 2
 
 
 @dataclasses.dataclass
@@ -136,6 +154,72 @@ class BlendedFlow:
                    + alpha * self.fields2[:2])
         vals = interp_stencil_apply(blended, ix, iy, wx, wy)  # (2, Np)
         return vals[0], vals[1]
+
+
+@dataclasses.dataclass
+class AnalyticFlow:
+    """Flow defined by an analytic streamfunction psi(x, y, t, params);
+    u = -psi_y, v = psi_x and the gradient tensor come from
+    torch.autograd.grad of psi (create_graph=True).
+
+    Replaces DifferenceScheme.m (finite differences of a psi handle) with
+    exact derivatives. `params` maps names to 0-dim tensors. psi must be
+    elementwise in (x, y) (each point's value depends on that point
+    only), so the gradient of the sum over the points is each point's own
+    derivative. Where the positions, a parameter or a tensor `t` require
+    grad (and grad mode is on), the values returned by `at` stay
+    differentiable w.r.t. them, to any order, so rays are differentiable
+    w.r.t. the flow's coefficients; otherwise they come back detached."""
+
+    params: Any
+    t: torch.Tensor | float = 0.0
+    psi: Callable = None
+
+    def _graph_wanted(self, x, y):
+        leaves = [x, y, *self.params.values()]
+        if isinstance(self.t, torch.Tensor):
+            leaves.append(self.t)
+        return torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in leaves)
+
+    def _derivatives(self, x, y, second: bool):
+        """(psi_x, psi_y) and, if `second`, (psi_xx, psi_xy, psi_yy) at
+        positions x, y (Np,)."""
+        keep = self._graph_wanted(x, y)
+        with torch.enable_grad():
+            # differentiate w.r.t. the positions themselves where they are
+            # in a graph, else w.r.t. fresh leaves holding their values
+            xx = x if keep and x.requires_grad else \
+                x.detach().requires_grad_(True)
+            yy = y if keep and y.requires_grad else \
+                y.detach().requires_grad_(True)
+            psi = self.psi(xx, yy, self.t, self.params)
+            gx, gy = torch.autograd.grad(psi.sum(), (xx, yy),
+                                         create_graph=True,
+                                         materialize_grads=True)
+            out = [gx, gy]
+            if second:
+                hxx, hxy = torch.autograd.grad(
+                    gx.sum(), (xx, yy), retain_graph=True, create_graph=keep,
+                    materialize_grads=True)
+                (hyy,) = torch.autograd.grad(gy.sum(), (yy,),
+                                             create_graph=keep,
+                                             materialize_grads=True)
+                out += [hxx, hxy, hyy]
+        return out if keep else [a.detach() for a in out]
+
+    def at(self, x, y, alpha=0.0) -> FlowEval:
+        """u, v and the gradient tensor at positions x, y (Np,); a steady
+        flow ignores `alpha`."""
+        gx, gy, hxx, hxy, hyy = self._derivatives(x, y, second=True)
+        return FlowEval(u=-gy, v=gx, u_x=-hxy, u_y=-hyy, v_x=hxx, v_y=hxy)
+
+    def velocity_at(self, x, y, alpha=0.0):
+        gx, gy = self._derivatives(x, y, second=False)
+        return -gy, gx
+
+    def streamfunction(self, x, y):
+        return self.psi(x, y, self.t, self.params)
 
 
 def _stack_from_psik(psik, grid: SpectralGrid, shear: float = 0.0,

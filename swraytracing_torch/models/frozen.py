@@ -1,16 +1,23 @@
 """Frozen-flow raytracing.
 
-Counterpart of `raytrace_frozen` and `ring_ics` of swraytracing_tpu/
-models/frozen.py: packets through a STEADY gridded flow with any of the
-four integrators, reporting the absolute-frequency conservation error
-dOmega/Omega0 — the reference's primary integrator-correctness metric
-(SW_zero_background_raytracing.m:85-132, symplectic_full_fourier.m).
+Counterpart of `raytrace_frozen`, `raytrace_pv_snapshot` and `ring_ics`
+of swraytracing_tpu/models/frozen.py:
+  * `raytrace_frozen` — packets through a STEADY flow (analytic or
+    gridded) with any of the four integrators, reporting the
+    absolute-frequency conservation error dOmega/Omega0 — the reference's
+    primary integrator-correctness metric
+    (SW_zero_background_raytracing.m:85-132, symplectic_full_fourier.m);
+  * `raytrace_pv_snapshot` — loads a PV frame from a frame-addressed .bin
+    (the reference's or ours), inverts it to a streamfunction as
+    SW_zero_background_raytracing.m:26-30 does (psi_k = -q_k/(K_d^2 +
+    K^2)), and raytraces through the frozen gridded flow.
 
 As in the JAX package, `raytrace_frozen` steps with the plain integrators
-of models/rays.py; the one-kernel march of a frozen flow is
-ops/march_rays.march_rays. The snapshot-file and RSW-restart workflows
-(`raytrace_pv_snapshot`, `raytrace_rsw_restart`) are not part of this
-module yet.
+of models/rays.py (through prebuilt windows from 65536 packets on); the
+one-kernel march of a frozen flow is
+ops/march_rays.march_rays. The RSW-restart workflow
+(`raytrace_rsw_restart`) is not part of this module: it needs the RSW
+solver.
 """
 
 from __future__ import annotations
@@ -20,11 +27,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.grid import resolve_device
+from ..io import binio
+from ..ops.grid import SpectralGrid, resolve_device
+from ..ops import interp as _interp
+from ..ops import spectral as sp
 from .dispersion import Dispersion
+from .fields import GriddedFlow, flow_from_qk
 from . import rays
 
-__all__ = ["FrozenResult", "raytrace_frozen", "ring_ics"]
+__all__ = ["FrozenResult", "raytrace_frozen", "raytrace_pv_snapshot",
+           "ring_ics"]
 
 
 class FrozenResult(NamedTuple):
@@ -74,7 +86,17 @@ def raytrace_frozen(flow, x0, k0, disp: Dispersion, dt: float, nsteps: int,
                     save_every: int = 1, stepper: str = "symplectic"
                     ) -> FrozenResult:
     """Integrate packets through a steady flow and collect the
-    conservation diagnostics. Runs on the device of x0."""
+    conservation diagnostics. Runs on the device of x0.
+
+    A GriddedFlow without windows gets them prebuilt from
+    ops.interp._WINDOW_MIN_NP packets on (the JAX package's switch): the
+    build amortises over the whole run, and each evaluation gathers one
+    row a packet. On one H100 at 512^2 and 2^20 packets, 20 steps in
+    float32, the windowed run took 0.73 of the stencil's time, build
+    included (chip_smoke.py, phase analytic_path)."""
+    if (isinstance(flow, GriddedFlow) and flow.win is None
+            and x0.shape[-1] >= _interp._WINDOW_MIN_NP):
+        flow = flow.windowed()
     step = _STEPPERS[stepper]
     xs, ks, ts = rays.integrate_rays(
         x0, k0, dt, nsteps, lambda x, k, t: step(x, k, dt, disp, flow),
@@ -94,3 +116,26 @@ def raytrace_frozen(flow, x0, k0, disp: Dispersion, dt: float, nsteps: int,
               if nframes else empty)
     return FrozenResult(x=xs, k=ks, t=ts, omega=om, omega_abs0=om_abs0,
                         omega_abs=om_abs)
+
+
+def raytrace_pv_snapshot(pv_path, frame: int, nx: int, Kd2: float,
+                         disp: Dispersion, n_packets: int = 50,
+                         w0: float = 2.0, dt: float = 1e-3,
+                         nsteps: int = 1000, save_every: int = 10,
+                         stepper: str = "symplectic", L=2 * np.pi,
+                         seed: int = 146, *, device=None,
+                         dtype: torch.dtype = torch.float32
+                         ) -> FrozenResult:
+    """Frozen-PV-frame raytracing (SW_zero_background_raytracing.m): read
+    PV grid frame `frame` (1-based) of an (nx, nx) .bin, invert it, trace
+    rays from ring_ics. Runs on `device` (None = the CUDA device; raises
+    when there is none) in `dtype`."""
+    device = resolve_device(device)
+    q = binio.read_field(pv_path, nx, nx, frames=frame)
+    grid = SpectralGrid.square(nx, L)
+    qk = sp.to_spectral(torch.as_tensor(q, dtype=dtype, device=device), grid)
+    flow = GriddedFlow(fields=flow_from_qk(qk, grid, Kd2).fields, grid=grid)
+    x0, k0 = ring_ics(n_packets, w0, disp, L, seed, device=device,
+                      dtype=dtype)
+    return raytrace_frozen(flow, x0, k0, disp, dt, nsteps, save_every,
+                           stepper)

@@ -21,7 +21,7 @@ object with `.at(x, y, alpha) -> FlowEval` (models/fields.py).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -29,6 +29,7 @@ from .dispersion import Dispersion
 from ..ops.interp import interpolate
 
 __all__ = [
+    "RayState",
     "ray_rhs",
     "symplectic_step",
     "yoshida4_step",
@@ -39,6 +40,12 @@ __all__ = [
     "rk4_xka_step",
     "integrate_rays",
 ]
+
+
+class RayState(NamedTuple):
+    x: torch.Tensor              # (2, Np) positions, coordinate axis first
+    k: torch.Tensor              # (2, Np) wavenumbers
+    a: torch.Tensor | None = None  # (Np,) wave action (optional)
 
 
 # ---------------------------------------------------------------------------

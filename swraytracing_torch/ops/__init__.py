@@ -1,5 +1,5 @@
-from . import grid, spectral, interp, march_window, march_rays
+from . import grid, spectral, interp, nufft, march_window, march_rays
 from .grid import SpectralGrid
 
-__all__ = ["grid", "spectral", "interp", "march_window", "march_rays",
-           "SpectralGrid"]
+__all__ = ["grid", "spectral", "interp", "nufft", "march_window",
+           "march_rays", "SpectralGrid"]

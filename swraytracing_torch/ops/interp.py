@@ -41,7 +41,8 @@ at their own positions in one pass: fields (E, nf, nx, ny) and positions
 (E, Np) give (nf, E, Np) values (`interp_stencil_apply`), and window arrays
 (E, nx*ny, K) the same (`build_windows`, `interp_windowed`).
 
-`interpolate_cubic` is not ported yet and raises NotImplementedError.
+`interpolate_cubic` is the periodic bicubic convolution of the reference's
+interpolate2.m, done right.
 """
 
 from __future__ import annotations
@@ -49,6 +50,12 @@ from __future__ import annotations
 import torch
 
 from .grid import SpectralGrid
+
+# Packet count from which the window paths engage (GriddedFlow.windowed()
+# in models/frozen.raytrace_frozen; the coupled configs' default
+# window_min_np): from there a prebuilt window's one row gather a packet
+# beats the stencil's S*S point gathers.
+_WINDOW_MIN_NP = 65536
 
 __all__ = [
     "lagrange_weights",
@@ -251,6 +258,30 @@ def interp_windowed(W, nf, x, y, grid: SpectralGrid, order: int = 2):
     return torch.einsum("cxyf,xc,yc->fc", g, wx, wy)
 
 
+def _cubic_conv_weights(frac):
+    """Keys cubic-convolution (a=-1/2, MATLAB interp2 'cubic' kernel)
+    weights for nodes -1, 0, 1, 2 at fractional position frac in [0,1).
+    Returns (4, ...) with the node axis first."""
+    t = frac[None]
+    w_m1 = -0.5 * t * (1 - t) ** 2
+    w_0 = 1 - 2.5 * t ** 2 + 1.5 * t ** 3
+    w_1 = 0.5 * t * (1 + 4 * t - 3 * t ** 2)
+    w_2 = 0.5 * t ** 2 * (t - 1)
+    return torch.cat([w_m1, w_0, w_1, w_2], dim=0)
+
+
 def interpolate_cubic(F, x, y, grid: SpectralGrid):
-    raise NotImplementedError("interp.interpolate_cubic is not ported yet: "
-                              "ROADMAP item A12")
+    """Periodic bicubic-convolution interpolation — the reference's
+    interpolate2.m intent (MATLAB interp2 'cubic' on a periodic
+    4-point halo-extended grid), implemented correctly; the reference's
+    version is buggy (see why_isnt_interpolate2_working.m:32-49, which
+    sweeps y-slices comparing it against the Lagrangian stencil).
+    F (nx, ny) or (nf, nx, ny); x, y (Np,)."""
+    xl, yl, i0, j0 = _cell_coords(x, y, grid)
+    wx = _cubic_conv_weights(xl - i0)
+    wy = _cubic_conv_weights(yl - j0)
+    offsets = torch.arange(-1, 3, dtype=torch.int32,
+                           device=x.device)[:, None]
+    ix = torch.remainder(i0[None].to(torch.int32) + offsets, grid.nx)
+    iy = torch.remainder(j0[None].to(torch.int32) + offsets, grid.ny)
+    return interp_stencil_apply(F, ix, iy, wx, wy)

@@ -751,16 +751,21 @@ def transpose_reference(W: torch.Tensor) -> torch.Tensor:
     return W.t().contiguous()
 
 
-def transpose_cuda(W: torch.Tensor) -> torch.Tensor:
+def transpose_cuda(W: torch.Tensor, direction: str = "forward"
+                   ) -> torch.Tensor:
     """Tiled transpose on the card (kernels/csrc/transpose.cu): contiguous
     (A, B) float32/float64 CUDA tensor -> contiguous (B, A), any A and B.
     Launches on the current stream and does not synchronise. Counts its
-    launches in `transpose_cuda.launches`."""
+    launches in `transpose_cuda.launches`, and under `direction`
+    ("forward", or "backward" where window_transpose's backward calls it)
+    in `transpose_cuda.launches_by_direction`."""
     from .. import kernels
 
     if W.dim() != 2 or W.dtype not in _DTYPE_CODE:
         raise ValueError("transpose_cuda takes a 2-D float32/float64 tensor; "
                          f"got {W.dtype} {tuple(W.shape)}")
+    if direction not in transpose_cuda.launches_by_direction:
+        raise ValueError(f"transpose_cuda: unknown direction {direction!r}")
     _require_cuda("transpose_cuda", ("W", W, W.dtype, W.shape))
     A, B = W.shape
     out = torch.empty((B, A), dtype=W.dtype, device=W.device)
@@ -773,10 +778,12 @@ def transpose_cuda(W: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "swr_transpose")
     transpose_cuda.launches += 1
+    transpose_cuda.launches_by_direction[direction] += 1
     return out
 
 
 transpose_cuda.launches = 0
+transpose_cuda.launches_by_direction = {"forward": 0, "backward": 0}
 
 
 def build_windows_cuda(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
@@ -862,7 +869,7 @@ class _WindowTranspose(torch.autograd.Function):
     def backward(ctx, ct):
         # a transpose's cotangent is the transpose of the cotangent
         if ct.is_cuda:
-            return transpose_cuda(ct.contiguous())
+            return transpose_cuda(ct.contiguous(), direction="backward")
         return transpose_reference(ct)
 
 

@@ -179,7 +179,7 @@ def run_ensemble_chunk(carry_b: CoupledCarry, es: EnsembleSetup, s, cfg,
     threshold = window_threshold(cfg)
     dev = carry_b.packet_x.device
     members = torch.arange(carry_b.packet_x.shape[0], device=dev)
-    carry = prepare_carry_windows(carry_b, march, threshold)
+    carry = prepare_carry_windows(carry_b, False, march, threshold)
 
     def member_step(c):
         t = c.flow_state.t

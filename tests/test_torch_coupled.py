@@ -219,10 +219,18 @@ def test_unported_paths_raise_and_name_their_roadmap_item():
     c1, (px, _, _) = tcp.run_coupled_chunk(carry, s, cfg, 1)
     assert c1.overflow is None and torch.isfinite(px).all()
     assert tcp.coupled_flow_packet_step(carry, s, cfg).prev_win is None
-    # remat chunks
+    # remat chunks (ported): the forward is the plain chunk's, bit for
+    # bit, and the carry leaves without windows
     _, _, _, tcfg, ts, tc = _setups()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcp.run_coupled_chunk(tc, ts, tcfg, 1, remat=True)
+    r1, (rpx, rpk, rt) = tcp.run_coupled_chunk(tc, ts, tcfg, 1, remat=True)
+    p1, (ppx, ppk, pt) = tcp.run_coupled_chunk(tc, ts, tcfg, 1)
+    assert_equal(rpx, to_numpy(ppx))
+    assert_equal(rpk, to_numpy(ppk))
+    assert_equal(r1.flow_state.qk, to_numpy(p1.flow_state.qk))
+    assert r1.prev_win is None and p1.prev_win is not None
+    assert int(r1.overflow) == 0
+    with pytest.raises(TypeError, match="remat"):
+        tcp.prepare_carry_windows(tc, ts.march)
 
 
 def test_reference_quirks_config_reaches_the_solver():
@@ -234,5 +242,5 @@ def test_reference_quirks_config_reaches_the_solver():
     j1 = jax.jit(lambda c: jcp.coupled_flow_packet_step(
         jcp.prepare_carry_windows(c, False, js.march, 1), js, jcfg))(jc)
     t1 = tcp.coupled_flow_packet_step(
-        tcp.prepare_carry_windows(tc, ts.march), ts, tcfg)
+        tcp.prepare_carry_windows(tc, False, ts.march), ts, tcfg)
     _assert_carry_close(t1, j1)

@@ -183,10 +183,16 @@ def test_unported_paths_raise_and_name_their_roadmap_item():
     c1, (px, _, _) = tc2.run_coupled2_chunk(carry, s, cfg, 1)
     assert c1.overflow is None and torch.isfinite(px).all()
     assert tc2.coupled2_flow_packet_step(carry, s, cfg).prev_win is None
-    # remat chunks
+    # remat chunks (ported): the forward is the plain chunk's, bit for
+    # bit, and the carry leaves without windows
     _, _, _, tcfg, ts, tc = _setups()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tc2.run_coupled2_chunk(tc, ts, tcfg, 1, remat=True)
+    r1, (rpx, rpk, rt) = tc2.run_coupled2_chunk(tc, ts, tcfg, 1, remat=True)
+    p1, (ppx, ppk, pt) = tc2.run_coupled2_chunk(tc, ts, tcfg, 1)
+    assert_equal(rpx, to_numpy(ppx))
+    assert_equal(rpk, to_numpy(ppk))
+    assert_equal(r1.flow_state.qk, to_numpy(p1.flow_state.qk))
+    assert r1.prev_win is None and p1.prev_win is not None
+    assert int(r1.overflow) == 0
 
 
 def test_fused_build_chunk_matches_jax_and_two_pass():
@@ -210,10 +216,10 @@ def test_fused_build_chunk_matches_jax_and_two_pass():
 
 def test_prepare_carry_windows_and_mismatched_carry():
     _, _, _, tcfg, ts, tc = _setups()
-    ready = tcp.prepare_carry_windows(tc, ts.march)
+    ready = tcp.prepare_carry_windows(tc, False, ts.march)
     assert ready.prev_win.shape == (32 * 32, ts.march.K)
     assert int(ready.overflow) == 0 and ready.overflow.dtype == torch.int32
-    assert tcp.prepare_carry_windows(ready, ts.march) is ready
+    assert tcp.prepare_carry_windows(ready, False, ts.march) is ready
     stripped = dataclasses.replace(ready, prev_win=None)
     # a step from a carry without windows builds both and stays without
     stepped = tc2.coupled2_flow_packet_step(stripped, ts, tcfg)
@@ -222,7 +228,7 @@ def test_prepare_carry_windows_and_mismatched_carry():
     assert_equal(stepped.packet_x, to_numpy(with_win.packet_x))
     # stale windows of another margin are rebuilt
     wide = ts.march._replace(margin=2)
-    assert tcp.prepare_carry_windows(ready, wide).prev_win.shape == (
+    assert tcp.prepare_carry_windows(ready, False, wide).prev_win.shape == (
         32 * 32, wide.K)
     # a carry built for 6 field grids does not fit the uv-window path
     bad = dataclasses.replace(

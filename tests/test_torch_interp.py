@@ -1,6 +1,7 @@
-"""swraytracing_torch.ops.interp and the off-grid evaluation of
-swraytracing_torch.models.fields against the JAX package on the same numpy
-inputs (CPU, float64)."""
+"""swraytracing_torch.ops.interp (the stencil, windowed and bicubic
+interpolations), swraytracing_torch.ops.nufft and the off-grid evaluation
+of swraytracing_torch.models.fields against the JAX package on the same
+numpy inputs (CPU, float64)."""
 
 import numpy as np
 import pytest
@@ -8,9 +9,12 @@ import torch
 
 from swraytracing_tpu.ops.grid import SpectralGrid as JGrid
 from swraytracing_tpu.ops import interp as jin
+from swraytracing_tpu.ops import nufft as jnu
 from swraytracing_tpu.models import fields as jfl
 from swraytracing_torch.ops.grid import SpectralGrid as TGrid
 from swraytracing_torch.ops import interp as tin
+from swraytracing_torch.ops import nufft as tnu
+from swraytracing_torch.ops import spectral as tsp
 from swraytracing_torch.models import fields as tfl
 
 from torch_parity import (NX, L, to_jax, to_torch, to_numpy, assert_close,
@@ -156,7 +160,8 @@ def test_flow_from_psi_grid():
 
 def test_unported_window_paths_name_their_roadmap_item():
     # the windowed path is ported (held against JAX in
-    # tests/test_torch_per_stage.py); the cubic interpolation is not
+    # tests/test_torch_per_stage.py), and so is the cubic interpolation
+    # (held against JAX below): a constant field stays constant
     tg = TGrid.square(NX)
     F = torch.ones(6, NX, NX)
     x = torch.zeros(3)
@@ -164,5 +169,136 @@ def test_unported_window_paths_name_their_roadmap_item():
     assert W.shape == (NX * NX, 36 * 6)
     assert torch.allclose(tin.interp_windowed(W, 6, x, x, tg),
                           torch.ones(6, 3))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tin.interpolate_cubic(F[0], x, x, tg)
+    assert torch.allclose(tin.interpolate_cubic(F[0], x, x, tg),
+                          torch.ones(3))
+    assert torch.allclose(tin.interpolate_cubic(F, x, x, tg),
+                          torch.ones(6, 3))
+
+
+def test_cubic_conv_weights_and_interpolate_cubic_match_jax():
+    """Keys' cubic-convolution weights and the periodic bicubic
+    interpolation against JAX at positions with the mod/floor edges
+    planted: the same cell and weights, so values to 1e-13 and the cell
+    choice exact (a wrong cell would be O(1) off)."""
+    frac = np.random.default_rng(5).uniform(0, 1, 40)
+    w = tin._cubic_conv_weights(to_torch(frac))
+    assert_close(w, jin._cubic_conv_weights(to_jax(frac)), rtol=1e-15,
+                 atol=1e-16)
+    np.testing.assert_allclose(to_numpy(w).sum(0), 1.0, rtol=1e-14)
+    jg, tg = JGrid.square(NX), TGrid.square(NX)
+    F = smooth_fields(np.random.default_rng(6), 3)
+    p = _positions(seed=7)
+    for f in (F, F[1]):
+        got = tin.interpolate_cubic(to_torch(f), to_torch(p[0]),
+                                    to_torch(p[1]), tg)
+        want = jin.interpolate_cubic(to_jax(f), to_jax(p[0]), to_jax(p[1]),
+                                     jg)
+        assert_close(got, want, rtol=1e-13, atol=1e-13)
+
+
+def test_cubic_interpolation_accuracy():
+    """tests/test_interp.py's check through the port: interpolate_cubic
+    reproduces nodes exactly and converges on smooth fields; the 6-point
+    Lagrangian stencil stays more accurate (higher order)."""
+    grid = TGrid.square(64)
+    X, Y = grid.meshgrid()
+    F = to_torch(np.sin(3 * X) * np.cos(2 * Y))
+    xg, yg = to_torch(grid.x[5:9]), to_torch(grid.y[11:15])
+    got = tin.interpolate_cubic(F, xg, yg, grid)
+    np.testing.assert_allclose(to_numpy(got),
+                               to_numpy(F)[5:9, 11:15].diagonal(),
+                               atol=1e-13)
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 2 * np.pi, 300)
+    y = rng.uniform(0, 2 * np.pi, 300)
+    exact = np.sin(3 * x) * np.cos(2 * y)
+    errc = np.abs(to_numpy(tin.interpolate_cubic(
+        F, to_torch(x), to_torch(y), grid)) - exact).max()
+    errl = np.abs(to_numpy(tin.interpolate(
+        F, to_torch(x), to_torch(y), grid)) - exact).max()
+    assert errc < 1e-3
+    assert errl < errc  # 6-point Lagrangian beats bicubic
+
+
+def test_eval_spectrum_matches_jax():
+    """ops.nufft: the direct evaluation of a random half-plane spectrum
+    and of its gradient at random points, against JAX (rtol 1e-12), and
+    its gradient w.r.t. the spectrum and the positions against jax.grad.
+    PyTorch's gradient of a real loss w.r.t. a complex input is the
+    complex conjugate of jax.grad's."""
+    import jax
+    import jax.numpy as jnp
+
+    jg, tg = JGrid.square(NX), TGrid.square(NX)
+    rng = np.random.default_rng(8)
+    fk = random_spectrum(rng, tg)
+    x, y = rng.uniform(-3, 9, (2, 60))
+    got = tnu.eval_spectrum_and_grad_at(to_torch(fk), to_torch(x),
+                                        to_torch(y), tg)
+    want = jnu.eval_spectrum_and_grad_at(to_jax(fk), to_jax(x), to_jax(y),
+                                         jg)
+    scale = float(np.abs(to_numpy(want[1])).max())
+    for g, w in zip(got, want):
+        assert_close(g, w, rtol=1e-12, atol=1e-13 * scale)
+    assert_close(tnu.eval_spectrum_at(to_torch(fk), to_torch(x),
+                                      to_torch(y), tg),
+                 jnu.eval_spectrum_at(to_jax(fk), to_jax(x), to_jax(y), jg),
+                 rtol=1e-12, atol=1e-13)
+
+    def jloss(fk_, x_):
+        f, fx, fy = jnu.eval_spectrum_and_grad_at(fk_, x_, to_jax(y), jg)
+        return jnp.sum(f ** 2 + fx * fy)
+
+    jgf, jgx = jax.grad(jloss, argnums=(0, 1))(to_jax(fk), to_jax(x))
+    tfk = to_torch(fk).requires_grad_(True)
+    tx = to_torch(x).requires_grad_(True)
+    f, fx, fy = tnu.eval_spectrum_and_grad_at(tfk, tx, to_torch(y), tg)
+    gf, gx = torch.autograd.grad((f ** 2 + fx * fy).sum(), (tfk, tx))
+    assert_close(gf, np.conj(np.asarray(jgf)), rtol=1e-11,
+                 atol=1e-12 * float(np.abs(np.asarray(jgf)).max()))
+    assert_close(gx, jgx, rtol=1e-11, atol=1e-12)
+
+
+def test_nufft_matches_grid():
+    """tests/test_interp.py's check through the port: at grid points the
+    direct evaluation equals the field, and its gradient the analytic
+    derivative."""
+    grid = TGrid.square(32)
+    X, Y = grid.meshgrid()
+    f = np.cos(2 * X + 3 * Y) + 0.3 * np.sin(5 * Y)
+    fk = tsp.to_spectral(to_torch(f), grid)
+    xs, ys = to_torch(X.ravel()), to_torch(Y.ravel())
+    vals = tnu.eval_spectrum_at(fk, xs, ys, grid)
+    np.testing.assert_allclose(to_numpy(vals), f.ravel(), atol=1e-10)
+    np.testing.assert_allclose(to_numpy(vals),
+                               to_numpy(tsp.to_grid(fk, grid)).ravel(),
+                               atol=1e-12)
+    v, vx, vy = tnu.eval_spectrum_and_grad_at(fk, xs, ys, grid)
+    np.testing.assert_allclose(to_numpy(vx),
+                               (-2 * np.sin(2 * X + 3 * Y)).ravel(),
+                               atol=1e-9)
+    np.testing.assert_allclose(
+        to_numpy(vy),
+        (-3 * np.sin(2 * X + 3 * Y) + 1.5 * np.cos(5 * Y)).ravel(),
+        atol=1e-9)
+
+
+def test_against_nufft():
+    """tests/test_interp.py's check through the port: the Lagrangian
+    interpolation converges to the direct spectral evaluation of a smooth
+    band-limited field (6-point truncation error ~6e-4 relative)."""
+    grid = TGrid.square(128)
+    rng = np.random.default_rng(2)
+    fk = np.zeros(grid.spectral_shape, dtype=complex)
+    for k in range(-6, 7):
+        for m in range(0, 7):
+            fk[k % grid.nx, m] = (rng.standard_normal()
+                                  + 1j * rng.standard_normal()) * 0.1
+    fk[:, 0] = 0
+    fk = to_torch(fk * grid.nyquist_mask)
+    f = tsp.to_grid(fk, grid)
+    xp = to_torch(rng.uniform(-3, 3, 100))
+    yp = to_torch(rng.uniform(-3, 3, 100))
+    fi = tin.interpolate(f, xp, yp, grid)
+    fs = tnu.eval_spectrum_at(fk, xp, yp, grid)
+    np.testing.assert_allclose(to_numpy(fi), to_numpy(fs), atol=5e-5)

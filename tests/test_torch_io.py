@@ -161,7 +161,7 @@ def _carries(model, with_slots):
                                    dtype=torch.float64)
     if with_slots:
         jc = jcp.prepare_carry_windows(jc, False, js.march, 1)
-        tc = tcp.prepare_carry_windows(tc, ts.march, 1)
+        tc = tcp.prepare_carry_windows(tc, False, ts.march, 1)
         jc = jc.replace(overflow=jnp.asarray(3, jnp.int32))
     # make every leaf distinct from the setup's (t, step, the AB history)
     fs = jc.flow_state

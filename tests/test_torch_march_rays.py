@@ -150,3 +150,60 @@ def test_raytrace_frozen_last_frame_is_the_fused_march():
     assert_equal(res.k[-1], to_numpy(kN))
     none = tfz.raytrace_frozen(flow, x0, k0, TD, 0.005, 5, save_every=20)
     assert none.x.shape == (0, 2, 30) and none.omega_abs.shape == (0, 30)
+
+
+def test_raytrace_pv_snapshot_matches_jax(tmp_path):
+    """Config 3 (tests/test_frozen.py): a QG PV frame written to .bin by
+    the port's binio, reloaded by the frozen-snapshot driver of each
+    package from the same file; the port's frames equal JAX's (atol 1e-9
+    after 1000 steps) and the invariant holds in the steady flow."""
+    from swraytracing_torch.io import binio
+    from swraytracing_torch.models.qg import initial_q_ring
+    from swraytracing_torch.ops import spectral as tsp
+
+    nx = 64
+    tg = TGrid.square(nx)
+    qk = initial_q_ring(3, tg, 0.3, 3.0, device="cpu", dtype=torch.float64)
+    q = to_numpy(tsp.to_grid(qk, tg))
+    binio.write_field(q, tmp_path / "pv", 1)
+    binio.write_field(q * 0.5, tmp_path / "pv", 2)
+    kw = dict(frame=2, nx=nx, Kd2=3.0, n_packets=16, dt=0.002, nsteps=1000,
+              save_every=250)
+    got = tfz.raytrace_pv_snapshot(tmp_path / "pv", disp=TD, device="cpu",
+                                   dtype=torch.float64, **kw)
+    want = jfz.raytrace_pv_snapshot(tmp_path / "pv", disp=JD, **kw)
+    assert got.x.shape == (4, 2, 16) and got.x.dtype == torch.float64
+    assert float(got.conservation_error[-1]) < 2e-2
+    assert bool(torch.isfinite(got.x).all())
+    assert_close(got.x, want.x, atol=1e-9)
+    assert_close(got.k, want.k, atol=1e-9)
+    assert_close(got.conservation_error, want.conservation_error, atol=1e-11)
+
+
+def test_raytrace_frozen_switches_to_windows_as_jax(monkeypatch):
+    """From ops.interp._WINDOW_MIN_NP packets on, raytrace_frozen builds the
+    gridded flow's windows once and steps through them, as the JAX package
+    does (the threshold lowered to 16 in both packages here): the frames
+    equal JAX's (atol 1e-10) and the stencil run's (atol 1e-12)."""
+    from swraytracing_tpu.ops import interp as jin
+    from swraytracing_torch.ops import interp as tin
+
+    jg, tg, psi, x0, k0 = _setup(40, seed=3)
+    args = (TD, 0.005, 40)
+    stencil = tfz.raytrace_frozen(t_flow(to_torch(psi), tg), to_torch(x0),
+                                  to_torch(k0), *args, save_every=10)
+    built = []
+    windowed = GriddedFlow.windowed
+    monkeypatch.setattr(GriddedFlow, "windowed",
+                        lambda self: built.append(1) or windowed(self))
+    monkeypatch.setattr(tin, "_WINDOW_MIN_NP", 16)
+    monkeypatch.setattr(jin, "_WINDOW_MIN_NP", 16)
+    got = tfz.raytrace_frozen(t_flow(to_torch(psi), tg), to_torch(x0),
+                              to_torch(k0), *args, save_every=10)
+    assert built == [1]
+    want = jfz.raytrace_frozen(j_flow(to_jax(psi), jg), to_jax(x0),
+                               to_jax(k0), JD, 0.005, 40, save_every=10)
+    for name in ("x", "k", "omega_abs"):
+        assert_close(getattr(got, name), getattr(want, name), atol=ATOL)
+        assert_close(getattr(got, name), to_numpy(getattr(stencil, name)),
+                     atol=1e-12)

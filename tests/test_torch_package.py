@@ -12,6 +12,7 @@ from swraytracing_torch import kernels
 from swraytracing_torch.models.coupled import CoupledConfig, setup_coupled
 from swraytracing_torch.models.coupled2 import Coupled2Config, setup_coupled2
 from swraytracing_torch.models.dispersion import Dispersion
+from swraytracing_torch.models.analytic import childress_soward
 from swraytracing_torch.models.frozen import ring_ics
 from swraytracing_torch.models.qg2 import initial_q2_ring
 from swraytracing_torch.ops.grid import SpectralGrid, resolve_device
@@ -43,7 +44,10 @@ def _run(code):
     "swraytracing_torch.analysis", "swraytracing_torch.analysis.device_diag",
     "swraytracing_torch.analysis.spectra",
     "swraytracing_torch.analysis.plots", "swraytracing_torch.parallel",
-    "swraytracing_torch.parallel.ensemble"])
+    "swraytracing_torch.parallel.ensemble",
+    "swraytracing_torch.models.analytic",
+    "swraytracing_torch.models.reversible", "swraytracing_torch.ops.nufft",
+    "swraytracing_torch.analysis.wavefield"])
 def test_import_pulls_in_no_jax(module):
     """Importing the port (and chip_smoke, import only) loads neither jax,
     flax, the JAX package nor matplotlib (which the card's machine does not
@@ -114,6 +118,8 @@ def test_no_device_argument_means_cuda_or_raise():
         setup_coupled(CoupledConfig(nx=16, n_packets=8, window_min_np=1))
     with pytest.raises(RuntimeError, match="CUDA"):
         ring_ics(8, 2.0, Dispersion(f=3.0, Cg=1.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        childress_soward()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

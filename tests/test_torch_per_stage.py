@@ -257,10 +257,10 @@ def test_per_stage_windowed_equals_stencil_and_step_without_windows():
     b, (px2, _, _) = tc2.run_coupled2_chunk(c2, s2, wcfg, 2)
     assert a.prev_win is None and b.prev_win is not None
     assert_close(px2, px1.numpy(), atol=1e-12)
-    ready = tcp.prepare_carry_windows(c2, None, 1)
+    ready = tcp.prepare_carry_windows(c2, False, None, 1)
     assert ready.prev_win.shape == (32 * 32, 36 * 6) and ready.overflow is None
-    assert tcp.prepare_carry_windows(ready, None, 1) is ready
-    assert tcp.prepare_carry_windows(ready, None, 10 ** 6).prev_win is None
+    assert tcp.prepare_carry_windows(ready, False, None, 1) is ready
+    assert tcp.prepare_carry_windows(ready, False, None, 10 ** 6).prev_win is None
     bare = tc2.coupled2_flow_packet_step(c2, s2, wcfg)
     assert bare.prev_win is None
     with_win = tc2.coupled2_flow_packet_step(ready, s2, wcfg)
