@@ -61,7 +61,17 @@ set to 0 just before it and read just after:
                  O(1)-memory reversible integrator against plain autograd,
                  a gridded frozen run through prebuilt windows and through
                  the stencil, the bicubic and direct spectral evaluations
-                 against the CPU.
+                 against the CPU;
+  solvers_path   the remaining solvers, which launch no kernel of the port
+                 (torch.fft and the plain stencil): every RSW variant,
+                 swknd with particles, the 1-D solvers, the C-grid model,
+                 QG passive particles, RSW-restart raytracing and the
+                 wave/vortex spectra on the card against the CPU in float64
+                 at nx=64 / n=128; then at 512^2: the nonlinear RSW 500
+                 steps (float32, beside float64), swkU_tc 200 steps,
+                 raytrace_rsw_restart through its final state with 2^20
+                 packets, QG with 2^20 passive particles, and the C-grid
+                 model in float64 with walls, beta and topography.
 
 Each phase prints one JSON line. Any failed phase raises, so the exit code
 is non-zero; without a CUDA device the script fails at once and runs
@@ -103,7 +113,8 @@ from swraytracing_torch import drivers, kernels
 from swraytracing_torch.analysis.device_diag import (OmegaHistSpec,
                                                      omega_hist_counts)
 from swraytracing_torch.io import binio, runmeta
-from swraytracing_torch.models import qg, qg2, rays
+from swraytracing_torch.models import (cgrid, examples, examples_1d, qg, qg2,
+                                       rays, rsw, sw1d)
 from swraytracing_torch.models.analytic import childress_soward
 from swraytracing_torch.models.coupled import (CoupledConfig,
                                                coupled_flow_packet_step,
@@ -117,7 +128,9 @@ from swraytracing_torch.models.coupled2 import (Coupled2Config,
 from swraytracing_torch.models.dispersion import Dispersion
 from swraytracing_torch.models.fields import (BlendedFlow, GriddedFlow,
                                               flow_from_psi_grid, flow_from_qk)
-from swraytracing_torch.models.frozen import raytrace_frozen, ring_ics
+from swraytracing_torch.models.exact_linear import plane_wave_ic
+from swraytracing_torch.models.frozen import (raytrace_frozen,
+                                              raytrace_rsw_restart, ring_ics)
 from swraytracing_torch.models.reversible import make_reversible_integrator
 from swraytracing_torch.ops import march_rays as mr
 from swraytracing_torch.ops import interp
@@ -3020,6 +3033,357 @@ def phase_analytic_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the remaining solvers (RSW family, 1-D, C-grid, QG particles, RSW restart)
+# ---------------------------------------------------------------------------
+
+# Card against CPU, float64, at the test sizes. Each output is held to
+# SOLVERS_ATOL where its values are O(1) or less, relative to its largest
+# value otherwise (swknd's pe sums 64^2 values of ~50).
+SOLVERS_SMALL = dict(nx=64, n=128)
+SOLVERS_ATOL = 1e-9
+# Full width: 512^2, steps cut to keep the phase within a minute.
+SOLVERS_FULL = dict(nx=512, swk_steps=500, swk_every=100, tc_steps=200,
+                    packets=2 ** 20, ray_dt=1e-3, ray_steps=100,
+                    ray_every=50, particles=2 ** 20, qg_steps=100,
+                    swp_steps=500)
+
+
+def leaves(tree):
+    """The tensors of a nested tuple / list / dict (None skipped)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (tuple, list)):
+        return [t for item in tree for t in leaves(item)]
+    if isinstance(tree, (rsw.RSWState, qg.QGState)):
+        return leaves([tree.Sk if isinstance(tree, rsw.RSWState)
+                       else tree.qk, tree.t])
+    return []
+
+
+def card_vs_cpu_errs(card, cpu):
+    """Per output, |card - cpu| at its largest, relative to the output's
+    largest value where that is above 1."""
+    a, b = leaves(card), leaves(cpu)
+    if len(a) != len(b) or not a:
+        raise AssertionError(f"card and CPU runs differ in outputs: "
+                             f"{len(a)} / {len(b)}")
+    errs = []
+    for x, y in zip(a, b):
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"card {x.shape} {x.dtype}, CPU {y.shape} "
+                                 f"{y.dtype}")
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError("a card output is not finite")
+        scale = max(1.0, float(y.abs().max())) if y.numel() else 1.0
+        errs.append(float((x - y).abs().max()) / scale if x.numel() else 0.0)
+    return errs
+
+
+def solver_cases():
+    """name -> fn(device) running one solver entry point in float64 at
+    the test sizes, from inputs made once on the host."""
+    nx, n = SOLVERS_SMALL["nx"], SOLVERS_SMALL["n"]
+    grid = SpectralGrid.square(nx)
+    f, cg = 3.0, 1.0
+    (u, v, h), _ = examples.wave_and_geostrophic_spectrum_ic(grid, f, cg)
+    f64 = torch.float64
+    rng = np.random.default_rng(23)
+    xp0 = rng.uniform(0.0, 2 * np.pi, (2, 64))
+    k0 = 2.0 * rng.standard_normal((2, 64))
+
+    def rsw_run(kw, background=None):
+        p = rsw.RSWParams(f=f, Cg=cg, **kw)
+
+        def run(dev):
+            if background == "zero":
+                z = torch.zeros(grid.shape, dtype=f64, device=dev)
+                bg = lambda t: (z, z)              # noqa: E731
+            elif background == "tc":
+                bg = examples.translating_cs_background(grid, f, cg)
+            else:
+                bg = None
+            st = rsw.rsw_init(u, v, h, grid, p, device=dev, dtype=f64)
+            return rsw.simulate_rsw(st, grid, p, 40, 10, background_fn=bg)
+        return run
+
+    pu, pv, ph = plane_wave_ic(grid, 1.0, 1.0, 2, 1, eta0=0.05)
+    _, U1 = examples_1d.plane_wave_1d(n, 1.0, 1.0, 0.05, 6)
+    x1 = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    U2 = np.stack([0.2 * np.cos(2 * x1), 0.1 * np.sin(x1),
+                   0.1 * np.cos(x1)], axis=1)
+    _, U3 = examples_1d.sw1setup_wave(n=int(np.log2(n)) - 1)
+    A0 = np.exp(1j * x1) + 0.3 * np.exp(2j * x1)
+    X, Y = grid.meshgrid()
+    h_swp = 0.05 * np.exp(-((X - 3) ** 2 + (Y - 3) ** 2))
+    hb = 0.1 * np.cos(X) * np.cos(Y)
+    swp_p = cgrid.SWPParams(Roi=1.0, Beta=0.5, Cg=1.0, Nu=0.01,
+                            periody=False)
+    qgp = qg.QGParams(Kd2=3.0, dt=2e-3, beta=0.5)
+    disp = Dispersion(f=f, Cg=cg)
+    return {
+        "swk": rsw_run({}),
+        "swkU": rsw_run({}, "zero"),
+        "swkU_tc": rsw_run({}, "tc"),
+        "killpv": rsw_run(dict(killpv=True), "zero"),
+        "pv_damp": rsw_run(dict(pv_damp_rate=0.1), "zero"),
+        "swks": rsw_run(dict(bernoulli_half=False)),
+        "swknd": lambda dev: rsw.swknd(pu, pv, ph, 0.1, 0.7, 30, 10,
+                                       np_particles=8, device=dev,
+                                       dtype=f64),
+        "sw1": lambda dev: sw1d.sw1(U1, sw1d.SW1Params(f=1.0, Cg=1.0), 200,
+                                    50, Xp0=np.linspace(-3, 3, 16),
+                                    device=dev, dtype=f64),
+        "sw1_forced": lambda dev: sw1d.sw1_forced(
+            U2, 0.05, 0.8, 0.3, 2, 2e-3, 200, 50, device=dev, dtype=f64),
+        "sw1rk3nu": lambda dev: sw1d.sw1rk3nu(U3, 0.3, 1.0, 1e-12, 200, 50,
+                                              device=dev, dtype=f64),
+        "ybj1d": lambda dev: sw1d.ybj1d(A0, 0.5, 0.4, 2, 1e-3, 400, 100,
+                                        device=dev),
+        "swp": lambda dev: cgrid.swp(u * 0.1, v * 0.1, h_swp, swp_p, hb=hb,
+                                     nt=60, save_every=20, device=dev),
+        "qg_particles": lambda dev: qg.simulate_qg_particles(
+            qg.qg_init(qg.initial_q_ring(5, grid, 0.4, 3.0, device=dev,
+                                         dtype=f64)),
+            torch.as_tensor(xp0, dtype=f64, device=dev), grid, qgp, 30, 10),
+        "rsw_restart": lambda dev: raytrace_rsw_restart(
+            u, v, h, disp, grid, xp0, k0, dt=2e-3, nsteps=40, save_every=10,
+            device=dev, dtype=f64),
+        "wave_vortex_spectra": lambda dev: rsw.wave_vortex_spectra(
+            *(torch.as_tensor(a, dtype=f64, device=dev) for a in (u, v, h)),
+            grid, rsw.RSWParams(f=f, Cg=cg)),
+    }
+
+
+def event_timed(fn):
+    """fn()'s output, its CUDA-event ms (the card's span from the first
+    launch to the last) and the host's seconds to enqueue it (a host-bound
+    run enqueues in about the event time)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), enqueue_s
+
+
+def timed_run(fn, steps):
+    """A run after `fn` has run once as a warm-up: ms a step by events,
+    the host's share, peak bytes."""
+    torch.cuda.reset_peak_memory_stats()
+    out, ms, enqueue_s = event_timed(fn)
+    return out, dict(steps=steps, event_ms=ms, ms_per_step=ms / steps,
+                     host_enqueue_ms=1e3 * enqueue_s,
+                     peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def device_share(fn, steps):
+    """One call of fn (`steps` steps) under torch.profiler: the host's
+    wall time a step, the card's busy time a step (the kernels', copies'
+    and memsets' own times summed; one stream, so nothing overlaps), the
+    idle share of the wall time, and the device operations and aten calls
+    a step. The profiler's own cost on the host is in the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    on_card = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = 1e-6 * sum(e.self_device_time_total for e in on_card)
+    return dict(steps=steps, wall_ms_per_step=1e3 * wall / steps,
+                device_busy_ms_per_step=1e3 * busy / steps,
+                device_idle_share=1.0 - busy / wall,
+                device_ops_per_step=sum(e.count for e in on_card) / steps,
+                aten_calls_per_step=sum(e.count for e in events
+                                        if e.key.startswith("aten::"))
+                / steps)
+
+
+def swk_512(dev, grid, ic):
+    """The nonlinear RSW at 512^2 in float32 (timed) and float64, and a
+    step-by-step rerun collecting each dt."""
+    F = SOLVERS_FULL
+    p = rsw.RSWParams(f=3.0, Cg=1.0)
+    steps, every = F["swk_steps"], F["swk_every"]
+    st32 = rsw.rsw_init(*ic, grid, p, device=dev, dtype=torch.float32)
+    rsw.simulate_rsw(st32, grid, p, 10, 10)                   # warm-up
+    (st, S, ts, ke, pe), run = timed_run(
+        lambda: rsw.simulate_rsw(st32, grid, p, steps, every), steps)
+    u0, v0, h0 = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in ic)
+    E0 = sum(float(e) for e in rsw.energy(u0, v0, h0, p))
+    E = (ke + pe).double().cpu().numpy()
+    drift = float(np.abs(E - E0).max() / E0)
+    blown = bool(st.blown)
+    if blown or not bool(torch.isfinite(S).all()) or not drift < 1e-2:
+        raise AssertionError(f"swk_512: blown {blown}, energy drift {drift}")
+    if S.dtype != torch.float32 or st.Sk.dtype != torch.complex64:
+        raise AssertionError(f"swk_512 float32 run: {S.dtype} {st.Sk.dtype}")
+    st64 = rsw.rsw_init(*ic, grid, p, device=dev, dtype=torch.float64)
+    (st64, S64, ts64, _, _), run64 = timed_run(
+        lambda: rsw.simulate_rsw(st64, grid, p, steps, steps), steps)
+    h32, h64 = S[-1, 2].double(), S64[-1, 2]
+    h_rel = float((h32 - h64).abs().max() / h64.abs().max())
+    t_gap64 = float(ts[-1] - ts64[-1])
+    # the same steps one by one through rsw_step, every dt kept
+    filters = rsw._filter_tensors(rsw.rsw_filters(grid, p), st32.Sk)
+    s1, dts = st32, []
+    for _ in range(steps):
+        s1 = rsw.rsw_step(s1, grid, p, filters)
+        dts.append(s1.dt)
+    dts = torch.stack(dts)
+    same = bool(torch.equal(s1.Sk, st.Sk))
+    t64 = float(torch.cumsum(dts.double(), 0)[-1])
+    t32 = float(torch.cumsum(dts, 0)[-1])           # as a float32 t would
+    if not (same and float(st.t) == t64):
+        raise AssertionError(f"swk_512: t {float(st.t)} against the float64 "
+                             f"sum of its dts {t64}; rerun equal: {same}")
+    profiled = device_share(lambda: rsw.simulate_rsw(st32, grid, p, 20, 20),
+                            20)
+    return st, dict(
+        run, dtype="float32", frames=int(S.shape[0]), profiled=profiled,
+        energy_drift_max=drift, energy_first=E0, energy_last=float(E[-1]),
+        blown=blown, t_end=float(st.t), dt_last=float(st.dt),
+        float64_run=run64, h_float32_vs_float64_rel_max=h_rel,
+        t_float32_run_minus_float64_run=t_gap64,
+        t_minus_float64_sum_of_dts=float(st.t) - t64,
+        float32_sum_of_dts_minus_float64_sum=t32 - t64,
+        rerun_by_rsw_step_bit_equal=same)
+
+
+def phase_solvers_path(dev):
+    """The solvers of A13 on the card, the launch counts set to 0 just
+    before the full-width runs and read just after (no kernel of the port
+    runs): (a) every entry point on the card against the CPU in float64 at
+    the test sizes; (b) the full-width runs of SOLVERS_FULL, each timed by
+    CUDA events after a warm-up, with peak bytes."""
+    t_phase = time.perf_counter()
+    # (a) card against CPU
+    small = {name: card_vs_cpu_errs(fn(dev), fn("cpu"))
+             for name, fn in solver_cases().items()}
+    over = {name: errs for name, errs in small.items()
+            if not max(errs) <= SOLVERS_ATOL}
+    if over:
+        raise AssertionError(f"solvers_path, card against CPU (each "
+                             f"output's error): {over}")
+    small = {name: max(errs) for name, errs in small.items()}
+    seconds_small = time.perf_counter() - t_phase
+    # (b) full width
+    reset_launches()
+    F = SOLVERS_FULL
+    grid = SpectralGrid.square(F["nx"])
+    disp = Dispersion(f=3.0, Cg=1.0)
+    ic, _ = examples.wave_and_geostrophic_spectrum_ic(grid, 3.0, 1.0)
+    st, swk = swk_512(dev, grid, ic)
+    # swkU_tc about the translating Childress-Soward background
+    p = rsw.RSWParams(f=3.0, Cg=1.0)
+    bg = examples.translating_cs_background(grid, 3.0, 1.0)
+    tc0 = rsw.rsw_init(*ic, grid, p, device=dev, dtype=torch.float32)
+    rsw.simulate_rsw(tc0, grid, p, 5, 5, background_fn=bg)    # warm-up
+    n_tc = F["tc_steps"]
+    (tst, TS, _, _, _), tc_run = timed_run(
+        lambda: rsw.simulate_rsw(tc0, grid, p, n_tc, n_tc, background_fn=bg),
+        n_tc)
+    if bool(tst.blown) or not bool(torch.isfinite(TS).all()):
+        raise AssertionError("swkU_tc_512 blew up")
+    tc_run.update(dtype="float32", t_end=float(tst.t))
+    # raytrace_rsw_restart through the final state of swk_512
+    uvh = sp.to_grid(st.Sk, grid)
+    n_p, rdt = F["packets"], F["ray_dt"]
+    x0, k0 = ring_ics(n_p, 2.0, disp, device=dev, dtype=torch.float32)
+    raytrace_rsw_restart(*uvh, disp, grid, x0[:, :4096], k0[:, :4096],
+                         dt=rdt, nsteps=2, save_every=2, device=dev)
+    (xs, ks, as_, _), ray = timed_run(
+        lambda: raytrace_rsw_restart(*uvh, disp, grid, x0, k0, dt=rdt,
+                                     nsteps=F["ray_steps"],
+                                     save_every=F["ray_every"], device=dev),
+        F["ray_steps"])
+    amin, amax = float(as_.min()), float(as_.max())
+    if not (bool(torch.isfinite(xs).all() & torch.isfinite(ks).all())
+            and 0.1 < amin <= amax < 10.0):
+        raise AssertionError(f"rsw_restart_512: action in [{amin}, {amax}]")
+    ray["profiled"] = device_share(
+        lambda: raytrace_rsw_restart(*uvh, disp, grid, x0, k0, dt=rdt,
+                                     nsteps=5, save_every=5, device=dev), 5)
+    ray.update(dtype="float32", packets=n_p, dt=rdt,
+               packet_steps_per_s=n_p * F["ray_steps"] / (ray["event_ms"]
+                                                          / 1e3),
+               action_min=amin, action_max=amax,
+               max_packet_displacement=float((xs[-1] - x0).abs().max()))
+    del xs, ks, as_, x0, k0, uvh, st
+    # QG with passive particles, the one-layer main path's state
+    s1, c1 = setup_coupled(CoupledConfig(**FULL), device=dev)
+    rng = np.random.default_rng(31)
+    xp = torch.as_tensor(rng.uniform(0.0, s1.grid.Lx, (2, F["particles"])),
+                         dtype=torch.float32, device=dev)
+    qg.simulate_qg_particles(c1.flow_state, xp[:, :4096], s1.grid,
+                             s1.qg_params, 2, 2)                # warm-up
+    n_qg = F["qg_steps"]
+    (qst, xq, _, _), qgr = timed_run(
+        lambda: qg.simulate_qg_particles(c1.flow_state, xp, s1.grid,
+                                         s1.qg_params, n_qg, n_qg), n_qg)
+    if not bool(torch.isfinite(xq).all() & torch.isfinite(qst.qk).all()):
+        raise AssertionError("qg_particles_512: not finite")
+    qgr["profiled"] = device_share(
+        lambda: qg.simulate_qg_particles(c1.flow_state, xp, s1.grid,
+                                         s1.qg_params, 5, 5), 5)
+    qgr.update(dtype="float32", particles=F["particles"],
+               Kd2=s1.qg_params.Kd2, dt=s1.qg_params.dt, U_g=FULL["U_g"],
+               particle_steps_per_s=F["particles"] * n_qg
+               / (qgr["event_ms"] / 1e3),
+               max_particle_displacement=float((xq - xp).abs().max()))
+    del s1, c1, xp, xq, qst
+    # the C-grid model in float64: walls on y, beta, topography (the JAX
+    # package's tests/test_cgrid.py walls-and-topography configuration)
+    X, Y = grid.meshgrid()
+    h0 = 0.01 * np.cos(X)
+    hb = 0.05 * np.exp(-((X - np.pi) ** 2 + (Y - np.pi) ** 2))
+    swp_p = cgrid.SWPParams(Roi=2.0, Beta=0.1, Cg=1.0, Drag=0.01,
+                            periody=False, Nu=0.1)
+    z = np.zeros(grid.shape)
+    cgrid.swp(z, z, h0, swp_p, hb=hb, nt=5, save_every=5,
+              device=dev)                                      # warm-up
+    n_swp = F["swp_steps"]
+    (us, vs, hs, ts_swp, ke_s, ape_s, htot), swp_run = timed_run(
+        lambda: cgrid.swp(z, z, h0, swp_p, hb=hb, nt=n_swp,
+                          save_every=n_swp, device=dev), n_swp)
+    swp_run["profiled"] = device_share(
+        lambda: cgrid.swp(z, z, h0, swp_p, hb=hb, nt=20, save_every=20,
+                          device=dev), 20)
+    htot0 = float(np.sum(h0 - hb))
+    mass = abs(float(htot[-1]) - htot0) / abs(htot0)
+    if not (bool(torch.isfinite(hs).all()) and mass < 1e-10):
+        raise AssertionError(f"swp_512: mass drift {mass}")
+    swp_run.update(dtype="float64", params=swp_p._asdict(),
+                   topography="0.05 exp(-|x - (pi, pi)|^2)",
+                   htot_first=htot0,
+                   htot_last=float(htot[-1]), mass_drift_rel=mass,
+                   t_end=float(ts_swp[-1]))
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"solvers_path launched a kernel: {launches}")
+    emit("solvers_path", card_vs_cpu=dict(SOLVERS_SMALL, dtype="float64",
+                                          atol=SOLVERS_ATOL, max_err=small,
+                                          seconds=seconds_small),
+         swk_512=swk, swkU_tc_512=tc_run, rsw_restart_512=ray,
+         qg_particles_512=qgr, swp_512=swp_run, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -3056,12 +3420,14 @@ def main():
     bounds.update(bounds_ens)
     launches_grad, transpose_by_direction = phase_grad_path(dev)
     launches_analytic = phase_analytic_path(dev)
+    launches_solvers = phase_solvers_path(dev)
     # launches: over the main paths, each counted from 0
     by_path = {"main_path": launches_two, "main_path_qg1": launches_one,
                "frozen_path": launches_rays, "driver_path": launches_driver,
                "driver_reference_config": launches_ref, **launches_ens,
                "grad_path": launches_grad,
-               "analytic_path": launches_analytic}
+               "analytic_path": launches_analytic,
+               "solvers_path": launches_solvers}
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -15,6 +15,11 @@ it is an ensemble's one-layer state, (E, nx, nky) spectra and the members'
 times and step counts (parallel/ensemble.py), and `ensemble_from_numpy`
 turns the JAX package's EnsembleSetup fields and batched carry into the
 port's.
+
+An RSW solver's state (models/rsw.py) crosses as
+{"Sk", "rhs_m1", "rhs_m2", "t", "dt", "step", "blown"}
+(`rsw_state_from_numpy`, `rsw_state_to_numpy`), so a JAX run of the RSW
+solver can be continued here, and back.
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ from .ops.grid import complex_dtype, resolve_device
 from .models.coupled import CoupledCarry
 from .models.qg import QGParams, QGState
 from .models.qg2 import QG2Operators, QG2State
+from .models.rsw import RSWState
 
 __all__ = ["carry_from_numpy", "carry_to_numpy", "operators_from_numpy",
-           "qg_params_from_numpy", "ensemble_from_numpy"]
+           "qg_params_from_numpy", "ensemble_from_numpy",
+           "rsw_state_from_numpy", "rsw_state_to_numpy"]
 
 
 def carry_from_numpy(tree: dict, device=None,
@@ -136,3 +143,38 @@ def ensemble_from_numpy(es: dict, tree: dict, device=None,
     setup = EnsembleSetup(**{key: np.array(es[key], dtype=np.float64)
                              for key in ("dt", "packet_delay", "T", "U0")})
     return setup, carry_from_numpy(tree, device=device, dtype=dtype)
+
+
+def rsw_state_from_numpy(tree: dict, device=None,
+                         dtype: torch.dtype = torch.float32) -> RSWState:
+    """An RSWState from a dict of numpy arrays (for example a JAX
+    RSWState's fields): the spectra become `dtype`'s complex type, `dt`
+    `dtype`, `t` a float64 and `blown` a bool 0-dim tensor, all on
+    `device` (None = the CUDA device; raises when there is none); `step`
+    a host int. Every array is copied."""
+    device = resolve_device(device)
+    cd = complex_dtype(dtype)
+
+    def spec(a):
+        return torch.tensor(np.asarray(a), dtype=cd, device=device)
+
+    return RSWState(Sk=spec(tree["Sk"]), rhs_m1=spec(tree["rhs_m1"]),
+                    rhs_m2=spec(tree["rhs_m2"]),
+                    t=torch.tensor(float(tree["t"]), dtype=torch.float64,
+                                   device=device),
+                    dt=torch.tensor(float(tree["dt"]), dtype=dtype,
+                                    device=device),
+                    step=int(tree["step"]),
+                    blown=torch.tensor(bool(tree["blown"]), device=device))
+
+
+def rsw_state_to_numpy(state: RSWState) -> dict:
+    """The inverse of rsw_state_from_numpy: every tensor to the host (`t`
+    float64, `step` int32, `blown` bool, as numpy scalars or arrays)."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    return {"Sk": arr(state.Sk), "rhs_m1": arr(state.rhs_m1),
+            "rhs_m2": arr(state.rhs_m2), "t": arr(state.t),
+            "dt": arr(state.dt), "step": np.int32(state.step),
+            "blown": arr(state.blown)}

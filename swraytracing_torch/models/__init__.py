@@ -1,6 +1,8 @@
-from . import (analytic, coupled, coupled2, dispersion, fields, frozen, qg,
-               qg2, rays, reversible)
+from . import (analytic, cgrid, coupled, coupled2, dispersion, examples,
+               examples_1d, exact_linear, fields, frozen, qg, qg2, rays,
+               reversible, rsw, sw1d)
 from .dispersion import Dispersion
 
-__all__ = ["analytic", "coupled", "coupled2", "dispersion", "fields",
-           "frozen", "qg", "qg2", "rays", "reversible", "Dispersion"]
+__all__ = ["analytic", "cgrid", "coupled", "coupled2", "dispersion",
+           "examples", "examples_1d", "exact_linear", "fields", "frozen",
+           "qg", "qg2", "rays", "reversible", "rsw", "sw1d", "Dispersion"]

@@ -10,14 +10,16 @@ of swraytracing_tpu/models/frozen.py:
   * `raytrace_pv_snapshot` — loads a PV frame from a frame-addressed .bin
     (the reference's or ours), inverts it to a streamfunction as
     SW_zero_background_raytracing.m:26-30 does (psi_k = -q_k/(K_d^2 +
-    K^2)), and raytraces through the frozen gridded flow.
+    K^2)), and raytraces through the frozen gridded flow;
+  * `raytrace_rsw_restart` — the ray_trace_sw/raytrace_sw.m workflow:
+    wave/vortex-decompose an RSW (u, v, h) state, advect packets with the
+    geostrophic part + spatially varying depth H = 1 + eta_g using the
+    x-k-a stepper with the wave-action equation (step_packet_xka.m:63-91).
 
 As in the JAX package, `raytrace_frozen` steps with the plain integrators
-of models/rays.py (through prebuilt windows from 65536 packets on); the
-one-kernel march of a frozen flow is
-ops/march_rays.march_rays. The RSW-restart workflow
-(`raytrace_rsw_restart`) is not part of this module: it needs the RSW
-solver.
+of models/rays.py (through prebuilt windows from 65536 packets on), and
+`raytrace_rsw_restart` with rays.rk4_xka_step through the stencil; the
+one-kernel march of a frozen flow is ops/march_rays.march_rays.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from ..io import binio
-from ..ops.grid import SpectralGrid, resolve_device
+from ..ops.grid import SpectralGrid, as_tensor, resolve_device
 from ..ops import interp as _interp
 from ..ops import spectral as sp
 from .dispersion import Dispersion
@@ -36,7 +38,7 @@ from .fields import GriddedFlow, flow_from_qk
 from . import rays
 
 __all__ = ["FrozenResult", "raytrace_frozen", "raytrace_pv_snapshot",
-           "ring_ics"]
+           "raytrace_rsw_restart", "ring_ics"]
 
 
 class FrozenResult(NamedTuple):
@@ -139,3 +141,57 @@ def raytrace_pv_snapshot(pv_path, frame: int, nx: int, Kd2: float,
                       dtype=dtype)
     return raytrace_frozen(flow, x0, k0, disp, dt, nsteps, save_every,
                            stepper)
+
+
+def raytrace_rsw_restart(u, v, h, disp: Dispersion, grid: SpectralGrid,
+                         x0, k0, a0=None, dt: float = 1e-3,
+                         nsteps: int = 1000, save_every: int = 10, *,
+                         device=None, dtype: torch.dtype = torch.float32):
+    """raytrace_sw.m workflow: wave/vortex-decompose (u, v, h), advect
+    packets through the geostrophic flow with depth refraction and the
+    wave-action equation (step_packet_xka semantics).
+
+    u, v, h (grids), x0, k0 ((2, Np)) and a0 ((Np,), default ones) are
+    numpy arrays or tensors, taken to `device` (None = the CUDA device;
+    raises when there is none) in `dtype`. Returns (x, k, a, t) frame
+    stacks: (nf, 2, Np) x2 and (nf, Np) on the device, t (nf,) float64 on
+    the host.
+    """
+    from .rsw import RSWParams, wave_vortex_decompose
+
+    device = resolve_device(device)
+
+    def tensor(a):
+        return as_tensor(a, dtype, device)
+
+    p = RSWParams(f=disp.f, Cg=disp.Cg)
+    (ug, vg, hg), _ = wave_vortex_decompose(tensor(u), tensor(v),
+                                            tensor(h), grid, p)
+    # geostrophic velocity-gradient grids from the decomposed flow
+    Sk = sp.to_spectral(torch.stack([ug, vg]), grid)
+    fields = torch.cat([
+        torch.stack([ug, vg]),
+        sp.to_grid(torch.stack([sp.ddx(Sk[0], grid), sp.ddy(Sk[0], grid),
+                                sp.ddx(Sk[1], grid), sp.ddy(Sk[1], grid)]),
+                   grid)])
+    H = 1.0 + hg
+    flow = GriddedFlow(fields=fields, grid=grid)
+    x, k = tensor(x0), tensor(k0)
+    a = torch.ones_like(x[0]) if a0 is None else tensor(a0)
+
+    xs, ks, as_ = [], [], []
+    nframes = nsteps // save_every
+    for _ in range(nframes):
+        for _ in range(save_every):
+            x, k, a = rays.rk4_xka_step(x, k, a, dt, disp, flow, H=H)
+        xs.append(x)
+        ks.append(k)
+        as_.append(a)
+    ts = torch.tensor([dt * save_every * (1 + j) for j in range(nframes)],
+                      dtype=torch.float64)
+
+    def stack(frames, like):
+        return (torch.stack(frames) if frames
+                else like.new_zeros((0,) + tuple(like.shape)))
+
+    return stack(xs, x), stack(ks, k), stack(as_, a), ts

@@ -32,8 +32,9 @@ Reference quirks and how they are treated:
     "ring" actually fills the whole square |k|,|l| <= k_max; pass
     `ring=False` to reproduce that.
 
-`simulate_qg_particles` (passive particles in the RSW solvers' advection
-scheme) is not part of this module yet.
+`simulate_qg_particles` advects passive particles with the RSW solvers'
+RK4 scheme (models/rsw.advect_particles) in the post-step geostrophic
+velocity.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ __all__ = [
     "qg_init",
     "qg_step",
     "simulate_qg",
+    "simulate_qg_particles",
     "initial_q_ring",
     "inertial_ring_forcing",
     "max_speed",
@@ -234,6 +236,40 @@ def simulate_qg(state: QGState, grid: SpectralGrid, p: QGParams,
     qk_frames = (torch.stack(qks) if qks
                  else state.qk.new_zeros((0,) + state.qk.shape))
     return state, qk_frames, torch.tensor(ts, dtype=torch.float64)
+
+
+def simulate_qg_particles(state: QGState, xp, grid: SpectralGrid,
+                          p: QGParams, nsteps: int, save_every: int = 1):
+    """QG flow + passive Lagrangian particles advected by the
+    geostrophic velocity — the experiment of the reference's
+    pyqgParticleAdvection.ipynb notebook (pyqg QGModel + particle
+    cloud), and the particle option of the RSW solvers
+    (rsw/swk.m:184-186), on this solver. Each flow step is qg_step, then
+    the (u, v) grids of fields.flow_from_qk, then one RK4
+    rsw.advect_particles step in them (frozen over the step, like
+    rsw/advect1d.m). Runs on the device of the state.
+
+    Args:
+      xp: (2, Np) particle positions, coordinate-first, on the state's
+        device in its real dtype.
+    Returns:
+      (final_state, xp_final, xp_frames (nframes, 2, Np), t_frames
+      (nframes,) float64 on the host).
+    """
+    from .fields import flow_from_qk
+    from .rsw import advect_particles
+
+    nframes = nsteps // save_every
+    xs, ts = [], []
+    for _ in range(nframes):
+        for _ in range(save_every):
+            state = qg_step(state, grid, p)
+            uv = flow_from_qk(state.qk, grid, p.Kd2, n_fields=2).fields
+            xp = advect_particles(xp, uv[0], uv[1], grid, p.dt)
+        xs.append(xp)
+        ts.append(state.t)
+    xp_frames = torch.stack(xs) if xs else xp.new_zeros((0,) + xp.shape)
+    return state, xp, xp_frames, torch.tensor(ts, dtype=torch.float64)
 
 
 # ---------------------------------------------------------------------------

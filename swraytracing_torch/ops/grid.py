@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ["SpectralGrid", "GridTensors", "complex_dtype", "resolve_device",
-           "host_array_tensor"]
+           "host_array_tensor", "as_tensor"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,6 +36,15 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU explicitly")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def as_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """`a` (a numpy array, or a tensor on any device) as a tensor of
+    `dtype` on `device`: what the entry points that take host arrays do
+    with them. A tensor that already is one comes back as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 # Device copies of small host arrays, by content (host_array_tensor).

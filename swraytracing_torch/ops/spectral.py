@@ -13,6 +13,8 @@ is given; the grid's wavenumber arrays come from
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -24,11 +26,16 @@ __all__ = [
     "ddx",
     "ddy",
     "enforce_hermitian",
+    "refspec_to_rfft2",
+    "rfft2_to_refspec",
     "exp_filter",
     "padded_grid",
     "padded_product",
     "dealiased_jacobian",
     "isospectrum",
+    "to_spectral_1d",
+    "to_grid_1d",
+    "padded_product_1d",
 ]
 
 
@@ -89,6 +96,35 @@ def enforce_hermitian(fk: torch.Tensor, grid: SpectralGrid) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Layout conversion to/from the reference's fftshifted half-plane
+# ---------------------------------------------------------------------------
+
+def _refspec_rows(grid: SpectralGrid) -> np.ndarray:
+    """rfft2 row of each reference row: kx = -kmax..kmax -> kx mod nx."""
+    return np.arange(-grid.kmax, grid.kmax + 1) % grid.nx
+
+
+def refspec_to_rfft2(fk_ref, grid: SpectralGrid):
+    """Convert a reference-layout spectrum (2*kmax+1, kmax+1), kx in
+    [-kmax, kmax] (shifted), ky in [0, kmax], into the rfft2 layout.
+
+    Used to ingest spectral .bin frames written by the MATLAB code
+    (read_field.m spectral mode: nx == 2*ny - 1). Host numpy, complex128,
+    as in the JAX package.
+    """
+    out = np.zeros(grid.spectral_shape, dtype=np.complex128)
+    out[_refspec_rows(grid), : grid.kmax + 1] = np.asarray(fk_ref)
+    return out
+
+
+def rfft2_to_refspec(fk, grid: SpectralGrid):
+    """Inverse of refspec_to_rfft2 (for writing reference-compatible
+    spectral frames); host numpy, complex128."""
+    return np.asarray(fk)[_refspec_rows(grid),
+                          : grid.kmax + 1].astype(np.complex128)
+
+
+# ---------------------------------------------------------------------------
 # Spectral filters
 # ---------------------------------------------------------------------------
 
@@ -135,8 +171,12 @@ def _unpad_spectrum(fk_big, grid: SpectralGrid, mx: int):
     return torch.cat([top, mid, bot], dim=-2)
 
 
+@functools.lru_cache(maxsize=64)
 def padded_grid(grid: SpectralGrid) -> SpectralGrid:
-    """The 3/2-padded companion grid used for dealiased products."""
+    """The 3/2-padded companion grid used for dealiased products. One
+    object per grid, so its cached device view (grid.tensors) is built
+    once: a new grid each call would copy its wavenumber arrays to the
+    device, and wait for the copy, at every dealiased product."""
     return SpectralGrid(nx=3 * grid.nx // 2, ny=3 * grid.ny // 2,
                         Lx=grid.Lx, Ly=grid.Ly)
 
@@ -204,3 +244,30 @@ def isospectrum(fk2: torch.Tensor, grid: SpectralGrid) -> torch.Tensor:
     bins = torch.as_tensor(Kround[keep], device=fk2.device)
     rings = fk2.new_zeros(kmax + 1).index_add_(0, bins, vals)
     return rings[1:]
+
+
+# ---------------------------------------------------------------------------
+# 1-D transforms (for the sw1/ybj1d family)
+# ---------------------------------------------------------------------------
+
+def to_spectral_1d(f: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.fft.rfft(f) / n
+
+
+def to_grid_1d(fk: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.fft.irfft(fk, n=n) * n
+
+
+def padded_product_1d(fk: torch.Tensor, gk: torch.Tensor, n: int
+                      ) -> torch.Tensor:
+    """1-D dealiased product via 3/2-rule padding (reference
+    rsw/sw1d.m:30-33 KMAXBIG = 3*(KMAX+1)/2-1 zero-padding)."""
+    m = 3 * n // 2
+    nk = n // 2 + 1
+    mk = m // 2 + 1
+    fb = torch.cat([fk, fk.new_zeros(mk - nk)])
+    gb = torch.cat([gk, gk.new_zeros(mk - nk)])
+    fg = torch.fft.irfft(fb, n=m) * m
+    gg = torch.fft.irfft(gb, n=m) * m
+    pk = torch.fft.rfft(fg * gg) / m
+    return pk[:nk]

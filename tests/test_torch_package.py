@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,7 +14,8 @@ from swraytracing_torch.models.coupled import CoupledConfig, setup_coupled
 from swraytracing_torch.models.coupled2 import Coupled2Config, setup_coupled2
 from swraytracing_torch.models.dispersion import Dispersion
 from swraytracing_torch.models.analytic import childress_soward
-from swraytracing_torch.models.frozen import ring_ics
+from swraytracing_torch.models.frozen import ring_ics, raytrace_rsw_restart
+from swraytracing_torch.models import cgrid, rsw, sw1d
 from swraytracing_torch.models.qg2 import initial_q2_ring
 from swraytracing_torch.ops.grid import SpectralGrid, resolve_device
 from swraytracing_torch.ops import march_rays as mr
@@ -47,7 +49,12 @@ def _run(code):
     "swraytracing_torch.parallel.ensemble",
     "swraytracing_torch.models.analytic",
     "swraytracing_torch.models.reversible", "swraytracing_torch.ops.nufft",
-    "swraytracing_torch.analysis.wavefield"])
+    "swraytracing_torch.analysis.wavefield", "swraytracing_torch.models.rsw",
+    "swraytracing_torch.models.sw1d", "swraytracing_torch.models.cgrid",
+    "swraytracing_torch.models.exact_linear",
+    "swraytracing_torch.models.examples",
+    "swraytracing_torch.models.examples_1d",
+    "swraytracing_torch.ops.spectral", "swraytracing_torch.models"])
 def test_import_pulls_in_no_jax(module):
     """Importing the port (and chip_smoke, import only) loads neither jax,
     flax, the JAX package nor matplotlib (which the card's machine does not
@@ -121,6 +128,36 @@ def test_no_device_argument_means_cuda_or_raise():
     with pytest.raises(RuntimeError, match="CUDA"):
         childress_soward()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_solver_entry_points_want_cuda_or_raise():
+    """The solvers' entry points that take numpy arrays raise on a machine
+    without a CUDA device unless told device='cpu'; nothing carries on on
+    the CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a CUDA device")
+    grid = SpectralGrid.square(16)
+    z2 = np.zeros((16, 16))
+    z1 = np.zeros((16, 3))
+    x0 = np.zeros((2, 4))
+    calls = [
+        lambda: rsw.rsw_init(z2, z2, z2, grid, rsw.RSWParams(f=3.0, Cg=1.0)),
+        lambda: rsw.swknd(z2, z2, z2, 0.1, 0.7, 2),
+        lambda: sw1d.sw1(z1, sw1d.SW1Params(f=1.0, Cg=1.0), 2),
+        lambda: sw1d.sw1_forced(z1, 0.1, 1.0, 0.2, 1, 1e-3, 2),
+        lambda: sw1d.sw1rk3nu(z1, 0.1, 1.0, 1e-6, 2),
+        lambda: sw1d.ybj1d(np.ones(16, complex), 0.5, 0.4, 2, 1e-3, 2),
+        lambda: cgrid.swp(z2, z2, z2, nt=2, save_every=1),
+        lambda: cgrid.swp_to_files(z2, z2, z2, "never-written", nt=2,
+                                   save_every=1),
+        lambda: raytrace_rsw_restart(z2, z2, z2, Dispersion(f=3.0, Cg=1.0),
+                                     grid, x0, x0, nsteps=2, save_every=1),
+        lambda: convert.rsw_state_from_numpy({}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not Path("never-written").exists()
 
 
 def test_cuda_kernels_unreachable_from_cpu_tensors():

@@ -116,3 +116,47 @@ def test_float32_stays_float32():
     assert fk.dtype == torch.complex64
     assert tsp.ddx(fk, tg).dtype == torch.complex64
     assert tsp.to_grid(fk, tg).dtype == torch.float32
+
+
+@pytest.mark.parametrize("nx", [32, 24])
+def test_refspec_layout_parity(nx):
+    """rfft2 <-> the reference's fftshifted half-plane: numpy in, the JAX
+    package's numpy out exactly."""
+    jg, tg = _grids(nx)
+    fk = random_spectrum(np.random.default_rng(6), tg)
+    ref = tsp.rfft2_to_refspec(fk, tg)
+    assert isinstance(ref, np.ndarray) and ref.dtype == np.complex128
+    assert_equal(ref, jsp.rfft2_to_refspec(fk, jg))
+    assert ref.shape == (2 * tg.kmax + 1, tg.kmax + 1)
+    back = tsp.refspec_to_rfft2(ref, tg)
+    assert_equal(back, jsp.refspec_to_rfft2(ref, jg))
+    np.testing.assert_array_equal(back, fk * (np.arange(tg.nky) <= tg.kmax)
+                                  * (np.abs(np.fft.fftfreq(nx, 1 / nx))
+                                     <= tg.kmax)[:, None])
+
+
+def test_1d_transforms_parity():
+    n = 64
+    rng = np.random.default_rng(7)
+    f = rng.standard_normal((n,))
+    g = rng.standard_normal((n,))
+    fk_t = tsp.to_spectral_1d(to_torch(f), n)
+    fk_j = jsp.to_spectral_1d(to_jax(f), n)
+    assert_close(fk_t, fk_j, atol=ATOL)
+    assert_close(tsp.to_grid_1d(fk_t, n), jsp.to_grid_1d(fk_j, n), atol=ATOL)
+    gk_t = tsp.to_spectral_1d(to_torch(g), n)
+    gk_j = jsp.to_spectral_1d(to_jax(g), n)
+    got = tsp.padded_product_1d(fk_t, gk_t, n)
+    assert_close(got, jsp.padded_product_1d(fk_j, gk_j, n), atol=ATOL)
+    # the reference's dealiasing: cos 5x * cos 7x on 64 points, exactly
+    x = 2 * np.pi * np.arange(n) / n
+    pk = tsp.padded_product_1d(tsp.to_spectral_1d(to_torch(np.cos(5 * x)),
+                                                  n),
+                               tsp.to_spectral_1d(to_torch(np.cos(7 * x)),
+                                                  n), n)
+    true = tsp.to_spectral_1d(
+        to_torch(0.5 * (np.cos(12 * x) + np.cos(2 * x))), n)
+    np.testing.assert_allclose(to_numpy(pk), to_numpy(true), atol=1e-15)
+    f32 = tsp.padded_product_1d(fk_t.to(torch.complex64),
+                                gk_t.to(torch.complex64), n)
+    assert f32.dtype == torch.complex64
