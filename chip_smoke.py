@@ -71,7 +71,21 @@ set to 0 just before it and read just after:
                  steps (float32, beside float64), swkU_tc 200 steps,
                  raytrace_rsw_restart through its final state with 2^20
                  packets, QG with 2^20 passive particles, and the C-grid
-                 model in float64 with walls, beta and topography.
+                 model in float64 with walls, beta and topography;
+  multirank_path packets and members sharded over torch.distributed ranks:
+                 at world size 1 over NCCL (in this process) the two- and
+                 one-layer main paths through the sharded chunk (equal bit
+                 for bit to main_path's and main_path_qg1's), Run I's sweep
+                 on a mesh with the one-pass build, and the scaling harness
+                 at 2^20 packets; then two ranks that share the card over
+                 gloo (spawned processes): the two-layer main path with
+                 2^19 packets a rank, gathered and held to world 1, and Run
+                 I's sweep with its members split over the ranks (each
+                 sweep's histograms and times equal to the one-rank sweep's;
+                 the two ranks' checkpoint resumed on one rank equal to the
+                 one-rank sweep resumed); last, one chunk of each coupled
+                 model traced by utils.profiling.trace, for the card's idle
+                 share and the five device operations that take the most.
 
 Each phase prints one JSON line. Any failed phase raises, so the exit code
 is non-zero; without a CUDA device the script fails at once and runs
@@ -97,7 +111,9 @@ import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing as mp
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -108,6 +124,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from swraytracing_torch import drivers, kernels
 from swraytracing_torch.analysis.device_diag import (OmegaHistSpec,
@@ -140,6 +157,10 @@ from swraytracing_torch.ops import march_window as mw
 from swraytracing_torch.ops import spectral as sp
 from swraytracing_torch.ops.grid import SpectralGrid
 from swraytracing_torch.parallel import ensemble as ens
+from swraytracing_torch.parallel import multihost
+from swraytracing_torch.parallel import sharding as shd
+from swraytracing_torch.parallel.scaling import measure_packet_scaling
+from swraytracing_torch.utils import profiling
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 / float64 rates outside the tensor cores.
@@ -3384,6 +3405,454 @@ def phase_solvers_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# several ranks: packets and members sharded over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device); the production backend, NCCL, runs at world size 1.
+MULTIRANK_WORLD = 2
+MULTIRANK_SWEEP_STEPS = 100   # Run I's sweep cut to one chunk
+MULTIRANK_TIMEOUT_S = 240     # a rank's collectives; the parent's wait twice
+# two ranks against one: the largest difference of a packet coordinate
+# relative to the largest coordinate (a packet's arithmetic does not depend
+# on the other packets, so 0 is expected)
+MULTIRANK_REL = 1e-6
+
+
+def mesh_sweep(base, max_steps, mesh=None, resume=False, **kw):
+    """Run I's sweep as run_sweep(ensemble=True) runs it (ENSEMBLE, with
+    its cuts), a checkpoint every chunk; on `mesh` when one is given."""
+    carry, _ = drivers.run_sweep(
+        ENSEMBLE_SWEEP, base_dir=str(base), ensemble=True,
+        member_ids=ENSEMBLE_IDS, T_member=lambda w0, ug: ENSEMBLE_T,
+        max_steps=max_steps, checkpoint_every=1, resume=resume, mesh=mesh,
+        verbose=False, **ENSEMBLE, **kw)
+    return carry
+
+
+def sharded_coupled(cfg, setup, run_chunk, mesh, n_chunks):
+    """A coupled model at full width on a mesh, as drive_coupled drives it
+    on one card: this rank's packets (the flow whole), two warm-up chunks
+    and n_chunks timed by CUDA events and the host clock, each chunk
+    ending in the overflow's MAX over the ranks. mesh=None: the same chunks
+    unsharded, as main_path runs them. Returns (carry with this rank's
+    packets, timing)."""
+    s, carry = setup(cfg, dtype=torch.float32)   # device=None: the card
+    if mesh is None:
+        def chunk(c):
+            return run_chunk(c, s, cfg, 1)
+    else:
+        carry = shd.shard_carry(carry, mesh)
+
+        def chunk(c):
+            return shd.run_sharded_chunk(run_chunk, c, s, cfg, 1, mesh)
+    for _ in range(2):
+        carry, _ = chunk(carry)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n_chunks):
+        carry, _ = chunk(carry)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = n_chunks * cfg.packet_steps_per_save
+    n_local = carry.packet_x.shape[-1]
+    seconds = start.elapsed_time(end) / 1e3
+    return carry, dict(flow_steps=steps, packets_here=n_local,
+                       ms_per_flow_step=1e3 * seconds / steps,
+                       host_ms_per_flow_step=1e3 * wall / steps,
+                       packet_steps_per_s_here=steps * n_local / seconds,
+                       overflow=int(carry.overflow))
+
+
+def coupled_launches(march, window, chunks):
+    """What a coupled run of `chunks` chunks launches: the march once a
+    flow step, the window kernel once a flow step and once for the first
+    carry's windows."""
+    steps = chunks * FULL["packet_steps_per_save"]
+    return {march: steps, window: steps + 1}
+
+
+def expected_counts(*parts):
+    counts = dict.fromkeys(WRAPPERS, 0)
+    for part in parts:
+        for name, n in part.items():
+            counts[name] += n
+    return counts
+
+
+# The two ranks' sweeps: Run I's members split over the ranks (a (2, 1)
+# mesh), and its members whole with their packets split (a (1, 2) mesh).
+MESH_SWEEPS = {"members_split": MULTIRANK_WORLD, "packets_split": 1}
+# A member's flow is the same bits on any mesh; its fields are not where
+# the members are split: cuFFT rounds a batch of 24 256^2 transforms (12
+# members' two velocity grids) otherwise than a batch of 12 (measured on
+# the card, `fft_batches` in the phase's line), so the two ranks' packets
+# part from the one-rank run's at float32 round-off, and a packet whose
+# frequency lies within that of a bin edge may count in the next bin: the
+# share of such counts, summed over a member's frames, over its counts.
+HIST_COUNT_SHARE = 1e-3
+
+
+def multirank_rank(rank, world, rendezvous, out):
+    """One of the ranks that share the card over gloo: the two-layer main
+    path with its half of the packets, then Run I's sweep on a (world, 1)
+    mesh (its members split over the ranks) and on a (1, world) mesh (each
+    member's packets split). Writes its timing and launch counts (and, on
+    rank 0, the gathered packets) into `out`."""
+    out = Path(out)
+    multihost.initialize(coordinator=f"file://{rendezvous}",
+                         num_processes=world, process_id=rank,
+                         device="cuda", backend="gloo",
+                         timeout_s=MULTIRANK_TIMEOUT_S)
+    try:
+        kernels.load()   # built by the parent: this loads the library
+        mesh = shd.make_mesh(ensemble=1, device_type="cuda")
+        reset_launches()
+        carry, timing = sharded_coupled(Coupled2Config(**FULL),
+                                        setup_coupled2, run_coupled2_chunk,
+                                        mesh, N_CHUNKS)
+        launches_main = read_launches()
+        x = shd.gather_packets(carry.packet_x, mesh).cpu().numpy()
+        k = shd.gather_packets(carry.packet_k, mesh).cpu().numpy()
+        if rank == 0:
+            np.savez(out / "two_ranks.npz", x=x, k=k)
+        del carry
+        torch.cuda.empty_cache()
+        reset_launches()
+        for label, ensemble in MESH_SWEEPS.items():
+            mesh_sweep(out / f"sweep_{label}", MULTIRANK_SWEEP_STEPS,
+                       mesh=shd.make_mesh(ensemble=ensemble,
+                                          device_type="cuda"))
+        launches_sweep = read_launches()
+        (out / f"rank{rank}.json").write_text(json.dumps(dict(
+            main=timing, launches_main=launches_main,
+            launches_sweep=launches_sweep,
+            backend=dist.get_backend())))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(target, world, tmp):
+    """The ranks as spawned processes; each its own timeout on the
+    process group, the parent twice that on its wait. A rank that fails
+    or hangs fails the phase."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target,
+                         args=(r, world, str(tmp / "rendezvous_gloo"),
+                               str(tmp)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 2 * MULTIRANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode}
+    if hung or failed:
+        raise AssertionError(f"multirank_path: ranks {hung} hung, ranks "
+                             f"{failed} failed (exit codes)")
+    return time.perf_counter() - t0
+
+
+def traced_chunk(label, cfg, setup, run_chunk, log_dir):
+    """One chunk of a coupled model at full width, after two warm-up
+    chunks, under utils.profiling.trace: the card's busy and idle shares
+    of the chunk's wall time (the kernels', copies' and memsets' own
+    times; one stream, so nothing overlaps; the profiler's host cost is in
+    the wall time) and the five device operations that take the most."""
+    s, carry = setup(cfg, dtype=torch.float32)
+    for _ in range(2):
+        carry, _ = run_chunk(carry, s, cfg, 1)
+    torch.cuda.synchronize()
+    steps = cfg.packet_steps_per_save
+    with profiling.trace(log_dir, name=label) as prof:
+        t0 = time.perf_counter()
+        carry, _ = run_chunk(carry, s, cfg, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = 1e-6 * sum(e.self_device_time_total for e in on_card)
+    top = sorted(on_card, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    return dict(flow_steps=steps, wall_ms_per_step=1e3 * wall / steps,
+                device_busy_ms_per_step=1e3 * busy / steps,
+                device_idle_share=1.0 - busy / wall,
+                device_ops_per_step=sum(e.count for e in on_card) / steps,
+                top5=[dict(name=e.key[:80],
+                           ms_per_step=1e-3 * e.self_device_time_total / steps,
+                           calls_per_step=e.count / steps,
+                           share_of_busy=1e-6 * e.self_device_time_total
+                           / busy) for e in top])
+
+
+def ckpt_diff(a, b):
+    """Per leaf of two checkpoints, the largest absolute difference."""
+    with np.load(a) as da, np.load(b) as db:
+        return {name: float(np.abs(da[name].astype(np.complex128)
+                                   - db[name].astype(np.complex128)).max())
+                for name in da.files if name.startswith("leaf_")}
+
+
+def phase_multirank_path(dev, tmp, main, final_two, final_one):
+    """Packets and members sharded over ranks (parallel/sharding.py,
+    run_sweep(mesh=...)), the launch counts set to 0 just before and read
+    just after, summed over the ranks:
+
+    1. world size 1 over NCCL, in this process: the two-layer main path
+       through run_sharded_chunk twice, in turns with the same chunks
+       unsharded (U, S, S, U; U not counted), and the one-layer main path
+       (each equal bit for bit to main_path's and main_path_qg1's runs),
+       Run I's sweep on the
+       1x1 mesh with the one-pass window build, and measure_packet_scaling
+       at the main path's size;
+    2. two ranks sharing the card over gloo, spawned: the two-layer main
+       path with 2^19 packets a rank (gathered, against world 1) and Run
+       I's sweep on a (2, 1) mesh, six members a rank, and on a (1, 2)
+       mesh, each member's packets split;
+    then, outside the counts: each sweep's histograms and times against the
+    one-rank sweep's (equal, but for the members' split: HIST_COUNT_SHARE),
+    each two-rank checkpoint resumed on one rank against the one-rank
+    sweep resumed, and the trace of one chunk of each coupled model through
+    utils.profiling.trace."""
+    t_phase = time.perf_counter()
+    ref_dir = tmp / "sweep_one_rank"
+    mesh_sweep(ref_dir, MULTIRANK_SWEEP_STEPS)   # what the sweeps are held to
+    # The host-bound step's time wanders by tens of per cent within one
+    # process, so the two-layer main path's chunks run unsharded and
+    # sharded in turns (U, S, S, U; the unsharded ones not counted), and
+    # the sharded runs are compared with the unsharded beside them.
+    cfg2 = Coupled2Config(**FULL)
+    turns = {"unsharded": [], "sharded": []}
+    _, timing = sharded_coupled(cfg2, setup_coupled2, run_coupled2_chunk,
+                                None, N_CHUNKS)
+    turns["unsharded"].append(timing["ms_per_flow_step"])
+    torch.cuda.synchronize()
+
+    reset_launches()
+    multihost.initialize(coordinator=f"file://{tmp / 'rendezvous_nccl'}",
+                         num_processes=1, process_id=0, device="cuda",
+                         timeout_s=MULTIRANK_TIMEOUT_S)
+    try:
+        backend1 = dist.get_backend()
+        mesh = shd.make_mesh(ensemble=1)
+        for _ in range(2):
+            c2, two_layer = sharded_coupled(cfg2, setup_coupled2,
+                                            run_coupled2_chunk, mesh,
+                                            N_CHUNKS)
+            turns["sharded"].append(two_layer["ms_per_flow_step"])
+            if two_layer["overflow"]:
+                raise AssertionError("multirank_path world 1: overflow")
+        x1 = c2.packet_x.cpu().numpy()
+        k1 = c2.packet_k.cpu().numpy()
+        del c2
+        launches_turns = read_launches()
+        _, timing = sharded_coupled(cfg2, setup_coupled2,
+                                    run_coupled2_chunk, None, N_CHUNKS)
+        turns["unsharded"].append(timing["ms_per_flow_step"])
+        reset_launches()
+        c1, one_layer = sharded_coupled(
+            CoupledConfig(march_fused_build=True, **FULL), setup_coupled,
+            run_coupled_chunk, mesh, N_CHUNKS)
+        equal_qg1 = (np.array_equal(c1.packet_x.cpu().numpy(), final_one[0])
+                     and np.array_equal(c1.packet_k.cpu().numpy(),
+                                        final_one[1]))
+        del c1
+        mesh_sweep(tmp / "sweep_nccl", MULTIRANK_SWEEP_STEPS, mesh=mesh,
+                   march_fused_build=True)
+        scaling_chunks = 4    # two warm-up calls and two timed
+        points = measure_packet_scaling(
+            lambda n: setup_coupled2(cfg2._replace(n_packets=n),
+                                     dtype=torch.float32),
+            lambda s: lambda c: run_coupled2_chunk(c, s, cfg2, 1),
+            base_packets=cfg2.n_packets, world_sizes=(1,), iters=2,
+            steps_per_call=cfg2.packet_steps_per_save)
+    finally:
+        dist.destroy_process_group()
+    launches_nccl = expected_counts(launches_turns, read_launches())
+    steps_sweep = MULTIRANK_SWEEP_STEPS
+    expected = expected_counts(
+        coupled_launches("march", "transpose", 2 + N_CHUNKS),
+        coupled_launches("march", "transpose", 2 + N_CHUNKS),
+        coupled_launches("march", "build_windows", 2 + N_CHUNKS),
+        coupled_launches("march", "transpose", scaling_chunks),
+        {"march_batched": steps_sweep,
+         "build_windows_batched": steps_sweep + 1})
+    if launches_nccl != expected:
+        raise AssertionError(f"multirank_path world 1: launch counts "
+                             f"{launches_nccl}, expected {expected}")
+    equal_main = np.array_equal(x1, final_two[0]) and \
+        np.array_equal(k1, final_two[1])
+    if not (equal_main and equal_qg1):
+        raise AssertionError("multirank_path world 1: packets differ from "
+                             f"main_path ({equal_main}) / main_path_qg1 "
+                             f"({equal_qg1})")
+    if one_layer["overflow"]:
+        raise AssertionError("multirank_path world 1: march overflow")
+    unsharded_ms = statistics.mean(turns["unsharded"])
+
+    torch.cuda.empty_cache()
+    ranks_seconds = run_ranks(multirank_rank, MULTIRANK_WORLD, tmp)
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(MULTIRANK_WORLD)]
+    members_per_rank = len(ENSEMBLE_SWEEP) // MULTIRANK_WORLD
+    expected_rank = expected_counts(
+        coupled_launches("march", "transpose", 2 + N_CHUNKS),
+        *[{"march_batched": steps_sweep,
+           "transpose_batched": steps_sweep + 1}] * len(MESH_SWEEPS))
+    for r, got in enumerate(ranks):
+        merged = expected_counts(got["launches_main"], got["launches_sweep"])
+        if merged != expected_rank or got["main"]["overflow"]:
+            raise AssertionError(f"multirank_path rank {r}: launch counts "
+                                 f"{merged}, expected {expected_rank}; "
+                                 f"overflow {got['main']['overflow']}")
+    with np.load(tmp / "two_ranks.npz") as d:
+        x2, k2 = d["x"], d["k"]
+    rel = max(float(np.abs(x2 - x1).max() / np.abs(x1).max()),
+              float(np.abs(k2 - k1).max() / np.abs(k1).max()))
+    if rel > MULTIRANK_REL:
+        raise AssertionError(f"multirank_path: two ranks against one, "
+                             f"largest relative difference {rel}")
+    launches = expected_counts(launches_nccl,
+                               *[r["launches_main"] for r in ranks],
+                               *[r["launches_sweep"] for r in ranks])
+
+    # the sweeps against the one-rank sweep; each two-rank checkpoint
+    # resumed on one rank against the one-rank sweep resumed
+    ck = f"ckpt-g{ENSEMBLE_IDS[0]}_{1:012d}.npz"
+
+    def held(base, resumed=None):
+        """Histograms and times of a sweep against the one-rank sweep's
+        (or of a resumed one against the one-rank sweep resumed)."""
+        want_dir = tmp / "resumed_one_rank" if resumed else ref_dir
+        hists = zip(member_files(base, "omega_hist"),
+                    member_files(want_dir, "omega_hist"))
+        share = [float(np.abs(np.frombuffer(a) - np.frombuffer(b)).sum()
+                       / np.frombuffer(b).sum()) for a, b in hists]
+        return {"omega_hist_equal": member_files(base, "omega_hist")
+                == member_files(want_dir, "omega_hist"),
+                "packet_time_equal": member_files(base, "packet_time")
+                == member_files(want_dir, "packet_time"),
+                "omega_hist_count_share_moved_max": max(share)}
+
+    sweeps = {"nccl_world_1_fused_build": held(tmp / "sweep_nccl")}
+    resumed = {"one_rank": mesh_sweep(shutil.copytree(ref_dir, tmp / (
+        "resumed_one_rank")), 2 * MULTIRANK_SWEEP_STEPS, resume=True)}
+    for label in MESH_SWEEPS:
+        base = tmp / f"sweep_{label}"
+        again = mesh_sweep(shutil.copytree(base, tmp / f"resumed_{label}"),
+                           2 * MULTIRANK_SWEEP_STEPS, resume=True)
+        want = resumed["one_rank"]
+        sweeps[f"gloo_two_ranks_{label}"] = dict(
+            held(base), checkpoint_minus_one_rank=ckpt_diff(
+                base / ck, ref_dir / ck),
+            resumed_on_one_rank=dict(
+                held(tmp / f"resumed_{label}", resumed=True),
+                packets_equal_bit_for_bit=bool(
+                    torch.equal(again.packet_x, want.packet_x)
+                    and torch.equal(again.packet_k, want.packet_k)),
+                max_abs_dk=float((again.packet_k - want.packet_k).abs()
+                                 .max())))
+        del again
+    del resumed
+    # the cause of the members' split: one batch of 24 inverse transforms
+    # against two of 12 (the fields of 12 members, and of 6)
+    spec = torch.randn(12, 2, 256, 129, dtype=torch.complex64,
+                       device=dev)
+    whole = torch.fft.irfft2(spec, s=(256, 256))
+    halves = torch.cat([torch.fft.irfft2(spec[:6], s=(256, 256)),
+                        torch.fft.irfft2(spec[6:], s=(256, 256))])
+    fft_batches = {"irfft2_24_vs_2x12_equal": bool(torch.equal(whole,
+                                                               halves)),
+                   "max_abs": float((whole - halves).abs().max())}
+    del spec, whole, halves
+    failed = []   # raised after the phase's line, which shows the numbers
+    exact = ("nccl_world_1_fused_build", "gloo_two_ranks_packets_split")
+    for label in exact:
+        got = sweeps[label]
+        if not (got["omega_hist_equal"] and got["packet_time_equal"]):
+            failed.append(f"{label}: histograms or times differ from the "
+                          "one-rank sweep's")
+    split = sweeps["gloo_two_ranks_packets_split"]
+    if any(split["checkpoint_minus_one_rank"].values()) or not (
+            split["resumed_on_one_rank"]["packets_equal_bit_for_bit"]
+            and split["resumed_on_one_rank"]["omega_hist_equal"]):
+        failed.append("packets split: the checkpoint or its resume on one "
+                      "rank differs from the one-rank sweep's")
+    members = sweeps["gloo_two_ranks_members_split"]
+    for got in (members, members["resumed_on_one_rank"]):
+        if not got["packet_time_equal"] or \
+                got["omega_hist_count_share_moved_max"] > HIST_COUNT_SHARE:
+            failed.append(f"members split: {got}")
+    flow_leaves = ("leaf_0", "leaf_1", "leaf_2", "leaf_3", "leaf_4")
+    if any(members["checkpoint_minus_one_rank"][leaf] for leaf in
+           flow_leaves):
+        failed.append("members split: the flow (qk, its history, t, step) "
+                      "differs from the one-rank run's")
+
+    trace = {label: traced_chunk(label, cfg, setup, run_chunk,
+                                 tmp / "trace")
+             for label, cfg, setup, run_chunk in (
+                 ("main_path", Coupled2Config(**FULL), setup_coupled2,
+                  run_coupled2_chunk),
+                 ("main_path_qg1",
+                  CoupledConfig(march_fused_build=True, **FULL),
+                  setup_coupled, run_coupled_chunk))}
+
+    n_total = FULL["n_packets"]
+    slowest = max(r["main"]["ms_per_flow_step"] for r in ranks)
+    emit("multirank_path",
+         world_1_nccl={
+             "backend": backend1,
+             "main_path": dict(two_layer, equal_to_main_path_bit_for_bit=True,
+                               main_path_ms_per_flow_step=main[
+                                   "ms_per_flow_step"],
+                               ms_per_flow_step_in_turns=turns,
+                               sharded_over_unsharded_in_turns=statistics.mean(
+                                   turns["sharded"]) / unsharded_ms),
+             "main_path_qg1": dict(
+                 one_layer, equal_to_main_path_qg1_bit_for_bit=True),
+             "scaling": [p._asdict() for p in points]},
+         two_ranks_sharing_one_card={
+             "backend": ranks[0]["backend"], "world": MULTIRANK_WORLD,
+             "note": "two processes time-slicing one card; not a scaling "
+                     "efficiency",
+             "by_rank": [dict(r["main"], launches_main_path=r[
+                 "launches_main"], launches_sweeps=r["launches_sweep"])
+                 for r in ranks],
+             "packet_steps_per_s": n_total * 1e3 / slowest,
+             "packet_steps_per_s_over_world_1":
+                 two_layer["ms_per_flow_step"] / slowest,
+             "packet_steps_per_s_over_unsharded_in_turns":
+                 unsharded_ms / slowest,
+             "largest_relative_difference_to_world_1": rel,
+             "tolerance": MULTIRANK_REL, "seconds": ranks_seconds},
+         mesh_sweep={
+             "source": "runs/run_tpu_sweep_b2000.py:46-57 (Run I)",
+             "members": len(ENSEMBLE_SWEEP),
+             "members_per_rank_when_split": members_per_rank,
+             "flow_steps": steps_sweep,
+             "resumed_to_flow_steps": 2 * steps_sweep,
+             "against_one_rank": sweeps, "fft_batches": fft_batches,
+             "hist_count_share_tolerance_members_split":
+                 HIST_COUNT_SHARE},
+         trace=trace, launches=launches, failed=failed,
+         seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"multirank_path: {failed}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
@@ -3400,9 +3869,11 @@ def main():
     phase_kernels_vs_plain(dev)
     phase_path_vs_cpu(dev)
     two, launches_two, routes_two, steps, main = phase_main_path(N_CHUNKS)
+    final_two = (two[2].packet_x.cpu().numpy(), two[2].packet_k.cpu().numpy())
     rows, bounds = phase_kernels(*two, steps)
     del two
     one, launches_one, routes_one, _, main_qg1 = phase_main_path_qg1(N_CHUNKS)
+    final_one = (one[2].packet_x.cpu().numpy(), one[2].packet_k.cpu().numpy())
     rows_one, bounds_one = phase_kernels_qg1(*one)
     del one
     rows_rays, bounds_rays, launches_rays = phase_frozen_path(dev)
@@ -3421,13 +3892,17 @@ def main():
     launches_grad, transpose_by_direction = phase_grad_path(dev)
     launches_analytic = phase_analytic_path(dev)
     launches_solvers = phase_solvers_path(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        launches_multirank = phase_multirank_path(dev, Path(tmp), main,
+                                                  final_two, final_one)
     # launches: over the main paths, each counted from 0
     by_path = {"main_path": launches_two, "main_path_qg1": launches_one,
                "frozen_path": launches_rays, "driver_path": launches_driver,
                "driver_reference_config": launches_ref, **launches_ens,
                "grad_path": launches_grad,
                "analytic_path": launches_analytic,
-               "solvers_path": launches_solvers}
+               "solvers_path": launches_solvers,
+               "multirank_path": launches_multirank}
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -22,9 +22,9 @@ none; name "cpu" to run on the CPU) and `dtype` (float32 by default).
 parameters.txt): a parameter table is executed as successive runs in one
 process, each with its own run directory, or with ensemble=True as one
 program that advances every member at once (parallel/ensemble.py), each
-member writing its own run directory of on-device omega histograms. The
-ensemble sharded over several devices (`mesh=`) is not ported yet
-(ROADMAP A14).
+member writing its own run directory of on-device omega histograms; with
+`mesh=` (parallel/sharding.make_mesh) the members and their packets are
+sharded over the ranks of a torch.distributed process group.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -565,23 +567,34 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
     series from frame 1; resume=True instead continues this base_dir's
     own series from its latest checkpoint.
 
-    mesh: the ensemble sharded over several devices is not ported yet
-    (ROADMAP A14) and raises NotImplementedError.
+    mesh: a (ensemble, packets) DeviceMesh (parallel/sharding.make_mesh);
+    every rank of the process group calls run_sweep with the same
+    arguments. The members are split over the ensemble axis and each
+    member's packets over the packet axis; every rank computes its
+    members' flow, fields and windows and marches its packets through its
+    own kernel launches (`device` is then the rank's device). After a
+    chunk the omega counts are summed over the packet axis, and the finite
+    flags (AND) and overflow counts (MAX) reach every rank, so all ranks
+    take the same branch: stop on a blow-up, widen the margin and re-run,
+    halt. A member's run directory is written by the rank that holds it at
+    packet rank 0, the sweep's own files and the checkpoints (the whole
+    ensemble, gathered) by rank 0: the files are those of the one-rank
+    run, and a checkpoint resumes on any mesh or on one rank. Returns the
+    whole carry on every rank, without the window array. None: the whole
+    ensemble on this process's device.
 
     Host reads per chunk: the histogram rows and times, one bool per member
     (is its flow finite), the overflow counts, and the PV grids when a
     PV frame is due. `device` and `dtype` as the other drivers take them.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sweep(ensemble=True, mesh=...), the ensemble sharded over "
-            "several devices, is not ported yet: ROADMAP item A14")
     from .models.coupled import CoupledConfig
     from .parallel.ensemble import setup_ensemble, run_ensemble_chunk
     from .analysis.device_diag import OmegaHistSpec, omega_hist_counts
+    from .parallel.sharding import MIN, MAX, MeshPart
 
-    log = print if verbose else (lambda *_: None)
     sweep = list(sweep)
+    part = MeshPart.of(mesh, len(sweep), Npackets)
+    log = print if verbose and part.root else (lambda *_: None)
     cfgs = [CoupledConfig(nx=nx, n_packets=Npackets,
                           near_inertial_factor=w0, U_g=ug,
                           T_Fr_days=T_Fr_days,
@@ -618,8 +631,9 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
                          omega_min=f if omega_hist_log else 0.0,
                          log_bins=bool(omega_hist_log))
     dev = carry_b.packet_x.device
-    wmax_dev = torch.as_tensor(wmax, dtype=dtype, device=dev)
-    members = torch.arange(E, device=dev)
+    wmax_dev = torch.as_tensor(part.member_values(wmax), dtype=dtype,
+                               device=dev)
+    members = torch.arange(len(part.member_range()), device=dev)
 
     def diag(c, i):
         return omega_hist_counts(c.packet_k, spec, omega_max=wmax_dev[i])
@@ -628,9 +642,11 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
         member_ids = list(range(E))
     assert len(member_ids) == E
 
-    # per-member run directories (the SLURM array's run-<task> layout)
-    rds = []
-    for i, (w0, ug) in enumerate(sweep):
+    # per-member run directories (the SLURM array's run-<task> layout),
+    # of this rank's members when it writes them
+    rds = {}
+    for i in (part.member_range() if part.writes else ()):
+        w0, ug = sweep[i]
         rd = RunDir(f"{base_dir}/run-{member_ids[i]}")
         rd.write_params(
             nx=nx, n_packets=Npackets, near_inertial_factor=w0, f=f,
@@ -652,11 +668,14 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
             packet_steps_per_save=cfg0.packet_steps_per_save, f=f, Cg=Cg,
             U_g=ug, U0=float(U0s[i]), Fr=float(U0s[i] / Cg),
             Kd2=f / Cg)
-        rds.append(rd)
-    rd_base = RunDir(base_dir)
-    rd_base.write_params(sweep=[list(map(float, p)) for p in sweep],
-                         nx=nx, n_packets=Npackets, n_chunks=n_chunks,
-                         steps_per_chunk=steps_per_chunk)
+        rds[i] = rd
+    if part.root:
+        rd_base = RunDir(base_dir)
+        rd_base.write_params(sweep=[list(map(float, p)) for p in sweep],
+                             nx=nx, n_packets=Npackets, n_chunks=n_chunks,
+                             steps_per_chunk=steps_per_chunk)
+    else:
+        rd_base = types.SimpleNamespace(log_metrics=lambda **_: None)
 
     state = {"s": s}
 
@@ -672,21 +691,29 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
         carry_b = restore_state(ck, carry_b)
         chunk0 = int(ck.split("_")[-1].split(".")[0])
         log(f"resumed sweep from {ck} at chunk {chunk0}")
+    chunk0 = part.agree(chunk0)
+    # every rank sets up the whole ensemble (the march margin is the
+    # ensemble's maximum) and restores whole checkpoints, then keeps its
+    # part
+    carry_b = part.local_carry(carry_b)
+    es = es.replace(**{k: part.member_values(getattr(es, k))
+                       for k in ("dt", "packet_delay", "T", "U0")})
+    lo = part.members.start  # rds, sweep and the host arrays: global i
 
     def pv_grids(c):
         return _host(sp.to_grid(c.flow_state.qk, s.grid))  # (E, nx, ny)
 
     # initial histogram (and PV, when a series is kept) frame per member
-    hist0 = _host(diag(carry_b, members))
+    hist0 = _host(part.packet_sum(diag(carry_b, members)))
     if chunk0 == 0:
-        q0_b = pv_grids(carry_b) if pv_every else None
-        for i, rd in enumerate(rds):
-            binio.write_field(np.ascontiguousarray(hist0[i]),
+        q0_b = pv_grids(carry_b) if pv_every and rds else None
+        for i, rd in rds.items():
+            binio.write_field(np.ascontiguousarray(hist0[i - lo]),
                               rd.file("omega_hist"), 1)
             binio.write_field(np.asarray(t0s[i]),
                               rd.file("packet_time"), 1)
             if pv_every:
-                binio.write_field(np.ascontiguousarray(q0_b[i]),
+                binio.write_field(np.ascontiguousarray(q0_b[i - lo]),
                                   rd.file("pv"), 1)
                 binio.write_field(np.asarray(t0s[i]),
                                   rd.file("pv_time"), 1)
@@ -700,7 +727,7 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
         # from the chunk arithmetic — members frozen before the checkpoint
         # have shorter series (frames stop when t stalls), and live
         # members' re-run chunks must skip the frames already written.
-        for i, rd in enumerate(rds):
+        for i, rd in rds.items():
             tpath = rd.file("packet_time")
             n_i = binio.frame_count(tpath, 1)
             if n_i:
@@ -722,9 +749,11 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
             chunk_start = carry_b
             tc = time.time()
             carry_b, (hb, tsb) = run(carry_b, es)
-            # one bool per member: also where the chunk's launches finish
-            ok_b = _host(torch.isfinite(carry_b.flow_state.qk)
-                         .flatten(1).all(1))
+            # one bool per member (on every rank: AND over the packet
+            # axis): also where the chunk's launches finish
+            ok_b = _host(part.member_vector(
+                torch.isfinite(carry_b.flow_state.qk).flatten(1).all(1),
+                MIN))
             elapsed = time.time() - tc
             if not ok_b.all():
                 bad = [i for i in range(E) if not ok_b[i]]
@@ -732,7 +761,8 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
                 rd_base.log_metrics(chunk=chunk, blow_up=True, members=bad)
                 break
             if carry_b.overflow is not None:
-                ov = int(carry_b.overflow.max())
+                # the largest count of any member on any rank
+                ov = int(part.member_vector(carry_b.overflow, MAX).max())
                 if ov > 0:
                     rd_base.log_metrics(chunk=chunk, march_overflow=ov,
                                         chunk_discarded=True)
@@ -754,8 +784,10 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
                     break
                 carry_b = dataclasses.replace(
                     carry_b, overflow=torch.zeros_like(carry_b.overflow))
-            hb_np, ts_np = _host(hb), tsb.numpy()
-            for i, rd in enumerate(rds):
+            hb_np = _host(part.packet_sum(hb))
+            # every member's times, on every rank
+            ts_np = part.member_vector(tsb).numpy()
+            for i, rd in rds.items():
                 for j in range(hb_np.shape[1]):
                     # frozen members stop producing frames (t stalls)
                     if ts_np[i, j] <= last_t[i]:
@@ -763,19 +795,19 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
                     last_t[i] = ts_np[i, j]
                     frame_i[i] += 1
                     writer.submit(binio.write_field,
-                                  np.ascontiguousarray(hb_np[i, j]),
+                                  np.ascontiguousarray(hb_np[i - lo, j]),
                                   rd.file("omega_hist"), int(frame_i[i]))
                     writer.submit(binio.write_field, ts_np[i, j],
                                   rd.file("packet_time"), int(frame_i[i]))
-            if pv_every and (chunk + 1) % pv_every == 0:
+            if pv_every and (chunk + 1) % pv_every == 0 and rds:
                 q_b = pv_grids(carry_b)
-                for i, rd in enumerate(rds):
+                for i, rd in rds.items():
                     if ts_np[i, -1] <= last_pv_t[i]:
                         continue  # frozen member: PV is static
                     last_pv_t[i] = ts_np[i, -1]
                     pv_frame_i[i] += 1
                     writer.submit(binio.write_field,
-                                  np.ascontiguousarray(q_b[i]),
+                                  np.ascontiguousarray(q_b[i - lo]),
                                   rd.file("pv"), int(pv_frame_i[i]))
                     writer.submit(binio.write_field, float(ts_np[i, -1]),
                                   rd.file("pv_time"), int(pv_frame_i[i]))
@@ -787,10 +819,11 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
                                       / elapsed))
             if checkpoint_every and (chunk + 1) % checkpoint_every == 0:
                 writer.flush()
-                save_state(RunDir(base_dir).path / f"ckpt-g{member_ids[0]}",
-                           dataclasses.replace(carry_b, prev_win=None,
-                                               overflow=None),
-                           step=chunk + 1)
+                whole = part.gather_carry(dataclasses.replace(
+                    carry_b, prev_win=None, overflow=None))
+                if part.root:
+                    save_state(Path(base_dir) / f"ckpt-g{member_ids[0]}",
+                               whole, step=chunk + 1)
             if chunk % 10 == 0:
                 log(f"{100.0 * (chunk + 1) / n_chunks:6.2f}%  "
                     f"t_max={ts_np[:, -1].max():.2f} "
@@ -801,11 +834,13 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
     finally:
         writer.close()
 
-    # final per-member packet snapshot + PV (reference record layouts)
+    # final per-member packet snapshot + PV (reference record layouts),
+    # from the whole ensemble's packets
+    q_np = pv_grids(carry_b) if rds else None
+    carry_b = part.gather_carry(carry_b)
     px_np = _host(carry_b.packet_x)
     pk_np = _host(carry_b.packet_k)
-    q_np = pv_grids(carry_b)
-    for i, rd in enumerate(rds):
+    for i, rd in rds.items():
         binio.write_field(s.grid.wrap_centered(px_np[i].T),
                           rd.file("packet_snap_x"), 1)
         binio.write_field(np.ascontiguousarray(pk_np[i].T),
@@ -816,8 +851,10 @@ def _run_sweep_ensemble(sweep, base_dir, *, nx=256, Npackets=2**14,
         # (pv_every > 0), else the single final frame
         fin = int(pv_frame_i[i]) + 1 if (
             pv_every and last_t[i] > last_pv_t[i]) else int(pv_frame_i[i])
-        binio.write_field(q_np[i], rd.file("pv"), fin)
+        binio.write_field(q_np[i - lo], rd.file("pv"), fin)
         binio.write_field(np.asarray(last_t[i]), rd.file("pv_time"), fin)
         rd.finish_run_log()
+    part.barrier()  # every rank's files are written
     log(f"sweep done: {time.time() - t_start:.1f} s wall for {E} members")
-    return carry_b, rds
+    return carry_b, [rds.get(i) or RunDir(f"{base_dir}/run-{member_ids[i]}")
+                     for i in range(E)]

@@ -271,9 +271,6 @@ def test_run_sweep_sequential_and_ensemble(tmp_path):
         p = runmeta.RunDir(ens / f"run-{i}").read_params()
         assert (p["near_inertial_factor"], p["U_g"]) == (w0, ug)
         assert (ens / f"run-{i}" / "omega_hist.bin").exists()
-    with pytest.raises(NotImplementedError, match="A14"):
-        tdr.run_sweep(base_dir=str(tmp_path / "mesh"), ensemble=True,
-                      mesh=object(), **PORT)
 
 
 def test_monitor_every_renders_live_frames(tmp_path):

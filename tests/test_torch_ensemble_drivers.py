@@ -11,7 +11,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 from swraytracing_tpu import drivers as jdr
@@ -85,13 +84,6 @@ def test_ensemble_margin_overflow_retries_like_jax(tmp_path):
     metrics = runmeta.RunDir(tdir).read_metrics()
     assert any(m.get("march_overflow") for m in metrics)
     assert int(carry.overflow.max()) == 0
-
-
-def test_ensemble_mesh_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="A14"):
-        tdr.run_sweep(SWEEP, base_dir=str(tmp_path / "m"), mesh=object(),
-                      **ENS, **PORT)
-    assert not (tmp_path / "m").exists()
 
 
 def _cli(*args):

@@ -47,6 +47,10 @@ def _run(code):
     "swraytracing_torch.analysis.spectra",
     "swraytracing_torch.analysis.plots", "swraytracing_torch.parallel",
     "swraytracing_torch.parallel.ensemble",
+    "swraytracing_torch.parallel.sharding",
+    "swraytracing_torch.parallel.multihost",
+    "swraytracing_torch.parallel.scaling", "swraytracing_torch.utils",
+    "swraytracing_torch.utils.logging", "swraytracing_torch.utils.profiling",
     "swraytracing_torch.models.analytic",
     "swraytracing_torch.models.reversible", "swraytracing_torch.ops.nufft",
     "swraytracing_torch.analysis.wavefield", "swraytracing_torch.models.rsw",
