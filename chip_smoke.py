@@ -6,9 +6,12 @@ builds the CUDA kernels of swraytracing_torch from the sources in this
 checkout (march, transpose, build_windows, march_rays, and the first three
 batched over the members of an ensemble, one launch for all), holds each
 against its plain PyTorch version on the card (the march through both of its
-entries: rows read by cell from the window arrays, and pre-gathered rows;
-each batched kernel also member by member against a single-member launch,
-bit for bit), runs every path once on the card and
+entries: rows read by cell from the window arrays, and pre-gathered rows,
+and by each of its three routes, which give the same bits: each warp's rows
+staged in shared memory, a ring of slots that producer warps fill while
+consumer warps march, and rows read per thread; each batched kernel also
+member by member against a single-member launch, bit for bit), runs every
+path once on the card and
 once on the CPU at a small size and compares them (the per-stage packet path
 too), then drives the main paths at full width, each with the launch counts
 set to 0 just before it and read just after:
@@ -97,7 +100,10 @@ back (`single_launch_ms`: one call between two events, which also counts
 the host's way to the launch), the least time the card could take for the same
 bytes and operations, the plain version's time, a library call's time
 where there is one, its launches on the main paths, its error against the
-plain version; the march row also holds `replaced_ms`, the time of the
+plain version; the march rows also hold `ms_by_route`, the kernel by each of
+its routes in the same run, and `march_batched` a stepper split by route
+(2, 6 and 8 stage evaluations on the same rows); the march row holds
+`replaced_ms`, the time of the
 stacked copy, the row gather and the pre-gathered march that the gathered
 march took the place of, measured in the same run; the march_rays row the
 unordered single launch of the same kernel as `replaced_ms` and the time of
@@ -187,6 +193,11 @@ SOURCES = {
 }
 SOURCES.update({f"{name}_batched": SOURCES[name]
                 for name in ("march", "transpose", "build_windows")})
+# The march kernel's sources by route: the ring route's kernel is in its own
+# header, which includes march.cuh. A march row's `source` is the file of
+# the route its timed launches took, `sources` both.
+MARCH_SOURCES = {"staged": SOURCES["march"], "direct": SOURCES["march"],
+                 "ring": "swraytracing_torch/kernels/csrc/march_ring.cuh"}
 # "march" is the entry the coupled paths launch (rows read by cell);
 # "march_pregathered" is the same kernel behind march_cuda, which no main
 # path launches (it has no row of its own in the `kernels` line);
@@ -402,11 +413,27 @@ def fits_staged(spec, dtype):
     return spec.block <= mw.staged_block_limit(spec, dtype)
 
 
-def march_by_route(win1, win2, xk, oi, oj, sub_dt, spec, route):
-    """The gathered march by a named route, whatever march_route would
-    pick: to hold one route against the other and to time both."""
+def fits_ring(spec, dtype):
+    """Whether two ring slots of 32 rows fit in an SM's shared memory."""
+    return mw.ring_slots(spec, dtype) >= 2
+
+
+def ring_sweep(spec, dtype):
+    """The ring route's consumer warps to time: S - 1, S - 2 and S - 3 of
+    S slots, as many of them as the route takes."""
+    slots = mw.ring_slots(spec, dtype)
+    top = min(slots - 1, mw.RING_MAX_CONSUMERS)
+    return sorted({c for c in (slots - 1, slots - 2, slots - 3)
+                   if 1 <= c <= top}, reverse=True)
+
+
+def march_by_route(win1, win2, xk, oi, oj, sub_dt, spec, route,
+                   consumers=None):
+    """The gathered march by a named route (on the ring route with
+    `consumers` consumer warps), whatever march_route would pick: to hold
+    one route against another and to time them."""
     return mw.march_gathered_cuda(win1, win2, xk, oi, oj, sub_dt, spec,
-                                  route=route)
+                                  route=route, consumers=consumers)
 
 
 def check_gathered_march(dtype, rtol, atol, F1, F2, x, k, xr, kr, spec_for,
@@ -434,8 +461,12 @@ def check_gathered_march(dtype, rtol, atol, F1, F2, x, k, xr, kr, spec_for,
         if not torch.equal(pre, got):
             raise AssertionError(f"{label}: the gathered kernel differs from "
                                  "the pre-gathered kernel on gathered rows")
-        other = "direct" if route == "staged" else "staged"
-        if other == "direct" or fits_staged(spec, dtype):
+        for other in ("staged", "direct", "ring"):
+            if other == route or (other == "staged"
+                                  and not fits_staged(spec, dtype)) or (
+                                      other == "ring"
+                                      and not fits_ring(spec, dtype)):
+                continue
             alt, ov_alt = march_by_route(*inputs, sub_dt, spec, other)
             if not (torch.equal(alt, got) and int(ov_alt.max()) == ovmax):
                 raise AssertionError(f"{label}: the {other} route differs "
@@ -704,7 +735,11 @@ def check_batched_kernels(dev):
     with 2 substeps, uv windows, margin 1, K = 128, float32) and in float64
     on a small case: each against its plain version, and each member
     against a single-member launch of the solo kernel on its own arrays,
-    bit for bit. Every member has its own substep length; member 0 has
+    bit for bit. The batched march by each of its routes (staged, ring,
+    direct) against the single-member launch of the same route, and the
+    ring's output, at each consumer count of the sweep, equal to the
+    staged route's bit for bit and within the tolerance of the plain
+    version. Every member has its own substep length; member 0 has
     sub_dt = 0 and its packets come back unchanged."""
     report = {}
     for dtype, rtol, atol, E, nx, n_p in (
@@ -770,12 +805,16 @@ def check_batched_kernels(dev):
             raise AssertionError(f"{label}: overflow {ovmax}")
         if not torch.equal(got[0], xk[0]):
             raise AssertionError(f"{label}: the member at sub_dt = 0 moved")
-        routes = {}
-        for r in ("staged", "direct"):
-            if r == "staged" and not fits_staged(spec, dtype):
+        want, ov_want = mw.march_gathered_batched_reference(*inputs, sub_dt,
+                                                            spec)
+        routes, by_route = {}, {}
+        for r in ("staged", "ring", "direct"):
+            if (r == "staged" and not fits_staged(spec, dtype)) or (
+                    r == "ring" and not fits_ring(spec, dtype)):
                 continue
             out, ov = mw.march_gathered_batched_cuda(*inputs, sub_dt, spec,
                                                      route=r)
+            by_route[r] = (out, ov)
             for e in range(E):
                 solo, ov_solo = mw.march_gathered_cuda(
                     wins[0][e], wins[1][e], xk[e], oi[e], oj[e],
@@ -785,16 +824,39 @@ def check_batched_kernels(dev):
                     raise AssertionError(f"{label} {r}: member {e} differs "
                                          "from its single-member launch")
             routes[r] = f"{E} members equal their single-member launches"
+        ring_check = {}
+        if "ring" in by_route and "staged" in by_route:
+            staged, ov_staged = by_route["staged"]
+            for c in ring_sweep(spec, dtype):
+                out, ov = mw.march_gathered_batched_cuda(
+                    *inputs, sub_dt, spec, route="ring", consumers=c)
+                torch.cuda.synchronize()
+                if not (torch.equal(out, staged)
+                        and torch.equal(ov, ov_staged)):
+                    raise AssertionError(f"{label}: the ring route with {c} "
+                                         "consumers differs from the staged "
+                                         "route")
+                ring_share = float(((out - want).abs()
+                                    / (atol + rtol * want.abs())).max())
+                if ring_share > 1.0 or not torch.equal(ov, ov_want):
+                    raise AssertionError(
+                        f"{label}: the ring route with {c} consumers is "
+                        f"{ring_share:.2f}x the tolerance from the plain "
+                        "version")
+                ring_check[f"consumers={c}"] = {
+                    "equals_staged_bit_for_bit": True,
+                    "share_of_tolerance": ring_share}
         report[str(dtype)] = {
             "members": E, "nx": nx, "n_packets_per_member": n_p,
             "K": spec.K, "sub_dt_over_dx": [float(v) / dx for v in sub_dt],
             "march_max_abs_err": err, "rtol": rtol, "atol": atol,
             "share_of_tolerance": share, "route_by_the_rule": route,
-            "routes_against_solo": routes,
+            "routes_against_solo": routes, "ring_slots":
+                mw.ring_slots(spec, dtype), "ring_against_staged": ring_check,
             "transpose_and_build_exact": True,
             "members_equal_solo_launches_bit_for_bit": True,
             "member_at_sub_dt_0_unchanged": True, "launches_per_call": 1}
-        del wins, inputs, got
+        del wins, inputs, got, want, by_route
     return report
 
 
@@ -1135,11 +1197,13 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
     if gathers != 0:
         raise AssertionError(f"{phase}: gather_packet_windows was called "
                              f"{gathers} times")
-    # by the counts the launches themselves left: every one staged
+    # by the counts the launches themselves left: every one on the route
+    # the rule gives
+    rule = mw.march_route(s.march, carry.packet_x.dtype)
     routes = dict(WRAPPERS[march].launches_by_route)
-    if routes != {"staged": all_steps, "direct": 0}:
+    if routes != {**dict.fromkeys(routes, 0), rule: all_steps}:
         raise AssertionError(f"{phase}: the march launches took the routes "
-                             f"{routes}")
+                             f"{routes}, expected {all_steps} {rule}")
     if any(mw.march_cuda.launches_by_route.values()):
         raise AssertionError(f"{phase}: the pre-gathered march was launched")
     for name, t in (("packet_x", carry.packet_x), ("packet_k", carry.packet_k),
@@ -1181,7 +1245,8 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     summary = dict(packet_steps_per_s=steps * cfg.n_packets / seconds,
                    ms_per_flow_step=1e3 * seconds / steps,
-                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   march_route=rule)
     return (cfg, s, carry), launches, routes, all_steps, summary
 
 
@@ -1240,6 +1305,48 @@ def march_rays_flops_per_packet_step(order):
     return 2 * drift + cell + weights + stencil + kick
 
 
+def ms_by_route(launch, spec, dtype):
+    """ms per call inside a run of calls (cuda_ms_run) of launch(route,
+    consumers) by every route these rows take, all in this run and in
+    turns: staged, the ring at each consumer count of the sweep, direct,
+    and staged again (the spread of one route within the run)."""
+    runs = []
+    if fits_staged(spec, dtype):
+        runs.append(("staged", "staged", None))
+    if fits_ring(spec, dtype):
+        runs += [(f"ring consumers={c}", "ring", c)
+                 for c in ring_sweep(spec, dtype)]
+    runs.append(("direct", "direct", None))
+    if fits_staged(spec, dtype):
+        runs.append(("staged_again", "staged", None))
+    return {key: cuda_ms_run(lambda: launch(route, c))
+            for key, route, c in runs}
+
+
+def stepper_split(launch, spec, dtype):
+    """The batched march by route at 2, 6 and 8 stage evaluations a flow
+    step on the same rows (symplectic, rk23 and rk4 at two substeps), and
+    the least-squares line through the three times: its intercept the
+    cost of what does not grow with the evaluations (the rows' copy and
+    the packets' loads and stores), its slope an evaluation's cost."""
+    evals = {"symplectic": 1, "rk23": 3, "rk4": 4}
+    routes = [("staged", None)] if fits_staged(spec, dtype) else []
+    if fits_ring(spec, dtype):
+        routes += [("ring", c) for c in ring_sweep(spec, dtype)]
+    out = {}
+    for route, c in routes:
+        key = route if c is None else f"ring consumers={c}"
+        n = [evals[st] * spec.n_substeps for st in evals]
+        t = [cuda_ms_run(lambda: launch(route, c, spec._replace(stepper=st)))
+             for st in evals]
+        slope, intercept = np.polyfit(n, t, 1)
+        out[key] = {**{f"{st} ({k} evaluations)": v
+                       for st, k, v in zip(evals, n, t)},
+                    "ms_not_growing_with_evaluations": float(intercept),
+                    "ms_per_evaluation": float(slope)}
+    return out
+
+
 def time_parts(parts, reps=15):
     return {name: cuda_ms(fn, reps) for name, fn in parts.items()}
 
@@ -1293,11 +1400,12 @@ def march_at_main_shapes(spec, win1, win2, x, k, sub_dt):
 
 
 def phase_march_routes(args):
-    """The two routes of the march kernel at the main shape over block
-    sizes (and the three steppers by the route the rule gives), and at the
-    other window sizes and types on random fields of the main grid: what
+    """The three routes of the march kernel at the main shape, the staged
+    and direct ones over block sizes and the ring over its consumer warps
+    (and the three steppers by the route the rule gives), and at the other
+    window sizes and types on random fields of the main grid: what
     march_route's rule and MarchSpec.block's default rest on. Same bits by
-    either route."""
+    every route."""
     win1, win2, xk, oi, oj, sub_dt, spec = args
     dev, n_p = xk.device, xk.shape[1]
     main = {}
@@ -1309,6 +1417,10 @@ def phase_march_routes(args):
             main[f"{route} block={block}"] = cuda_ms(
                 lambda: march_by_route(win1, win2, xk, oi, oj, sub_dt, sp,
                                        route), 15)
+    for c in ring_sweep(spec, xk.dtype):
+        main[f"ring consumers={c}"] = cuda_ms(
+            lambda: march_by_route(win1, win2, xk, oi, oj, sub_dt, spec,
+                                   "ring", c), 15)
     # 2, 6 and 8 stage evaluations a flow step on the same rows: what the
     # copy of the rows costs and what an evaluation costs
     steppers = {
@@ -1319,7 +1431,10 @@ def phase_march_routes(args):
         for stepper in ("symplectic", "rk23", "rk4")}
     emit("march_routes_main_shape", unit="ms, median of 15", K=spec.K,
          dtype=str(xk.dtype), rule=mw.march_route(spec, xk.dtype),
-         default_block=mw.MarchSpec._field_defaults["block"], **main,
+         default_block=mw.MarchSpec._field_defaults["block"],
+         ring_slots=mw.ring_slots(spec, xk.dtype),
+         ring_producers=mw.RING_PRODUCERS,
+         ring_default_consumers=mw.ring_consumers(spec, xk.dtype), **main,
          steppers_by_the_rule=steppers)
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1344,12 +1459,19 @@ def phase_march_routes(args):
                                              spb, route)
                 outs.append(run()[0])
                 case[f"{route} block={block}"] = cuda_ms(run, 7)
+        if fits_ring(sp, dtype):
+            run = lambda: march_by_route(w1, w2, xk_, coi, coj, sub_dt, sp,
+                                         "ring")
+            outs.append(run()[0])
+            case[f"ring consumers={mw.ring_consumers(sp, dtype)}"] = \
+                cuda_ms(run, 7)
         if not all(torch.equal(outs[0], o) for o in outs[1:]):
             raise AssertionError(f"routes differ at nf={nf} m={margin} "
                                  f"{dtype}")
         other[f"{dtype} nf={nf} m={margin} K={sp.K}"] = {
             "rule": mw.march_route(sp, dtype),
-            "staged_warp_bytes": mw.staged_warp_bytes(sp, dtype), **case}
+            "staged_warp_bytes": mw.staged_warp_bytes(sp, dtype),
+            "ring_slots": mw.ring_slots(sp, dtype), **case}
         del F, w1, w2, outs
     emit("march_routes_other_shapes", unit="ms, median of 7",
          n_packets=n_p, nx=spec.nx, **other)
@@ -1394,6 +1516,9 @@ def phase_kernels(cfg, s, carry, steps):
          sum_of_parts=sum(breakdown.values()), **breakdown,
          march_route=march_route, replaced_by_march_gathered_cuda=replaced)
     phase_march_routes(args)
+    march_ms_by_route = ms_by_route(
+        lambda route, c: mw.march_gathered_cuda(*args, route=route,
+                                                consumers=c), spec, dtype)
     march_plain_ms = cuda_ms(lambda: mw.march_gathered_reference(*args), 3)
     # Bytes the function must move: every window row that some packet
     # reads, once (packets of one cell share their row: this run's count of
@@ -1442,12 +1567,14 @@ def phase_kernels(cfg, s, carry, steps):
     # queued back to back (cuda_ms_run); `single_launch_ms` is one call
     # between two events, host included.
     rows = [
-        {"name": "march", "route": "cuda", "source": SOURCES["march"],
+        {"name": "march", "route": "cuda",
+         "source": MARCH_SOURCES[march_route],
+         "sources": sorted(set(MARCH_SOURCES.values())),
          "replaces": REPLACES["march"], "max_abs_err": march_err, "ms": march_ms,
          "plain_ms": march_plain_ms, "bound_ms": max(by_bytes, by_ops),
          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
          "library_ms": None, "single_launch_ms": march_single_ms,
-         "march_route": march_route,
+         "march_route": march_route, "ms_by_route": march_ms_by_route,
          "replaced_ms": replaced["replaced_ms"], "replaced": replaced},
         {"name": "transpose", "route": "cuda", "source": SOURCES["transpose"],
          "replaces": REPLACES["transpose"], "max_abs_err": tr_err,
@@ -1888,7 +2015,8 @@ def run_driver(out, max_steps, resume=False):
 def phase_driver_path(tmp, main):
     """The two-layer driver in diagnostic mode, 150 flow steps (6 chunks)
     with a checkpoint every 2 chunks, launch counts set to 0 just before:
-    K1 once per flow step (staged), K2 once per flow step plus the first
+    K1 once per flow step (on the route the rule gives the main path), K2
+    once per flow step plus the first
     carry's windows plus one per window rebuild after a CFL recheck. Then
     100 steps, resumed from their checkpoint to 150, against the
     uninterrupted run."""
@@ -1906,9 +2034,11 @@ def phase_driver_path(tmp, main):
     if len(metrics) != 6 or any("march_overflow" in m or "blow_up" in m
                                 for m in metrics):
         raise AssertionError(f"driver_path metrics: {metrics}")
-    if launches["march"] != steps or routes != {"staged": steps, "direct": 0}:
+    rule = main["march_route"]
+    if launches["march"] != steps or routes != {**dict.fromkeys(routes, 0),
+                                                rule: steps}:
         raise AssertionError(f"driver_path: march launches {launches}, "
-                             f"routes {routes}, expected {steps} staged")
+                             f"routes {routes}, expected {steps} {rule}")
     if gathers != 0:
         raise AssertionError(f"driver_path: gather_packet_windows was "
                              f"called {gathers} times")
@@ -2218,6 +2348,13 @@ def ensemble_kernel_rows(carry, s, es, cfg):
         raise AssertionError(f"batched march overflow {ovmax}")
     march = lambda: mw.march_gathered_batched_cuda(*inputs, sub_dt, spec)
     k1_ms, k1_single = cuda_ms_run(march), cuda_ms(march, 25)
+
+    def by_route(route, c, sp=spec):
+        return mw.march_gathered_batched_cuda(*inputs, sub_dt, sp,
+                                              route=route, consumers=c)
+
+    k1_by_route = ms_by_route(by_route, spec, dtype)
+    k1_split = stepper_split(by_route, spec, dtype)
     k1_plain = cuda_ms(
         lambda: mw.march_gathered_batched_reference(*inputs, sub_dt, spec), 3)
     # every row some packet of a member reads, once per member, and per
@@ -2269,7 +2406,15 @@ def ensemble_kernel_rows(carry, s, es, cfg):
 
     rows = [
         row("march_batched", err, k1_ms, k1_plain, k1_by_bytes, k1_by_ops,
-            None, k1_single, march_route=route),
+            None, k1_single, march_route=route, source=MARCH_SOURCES[route],
+            sources=sorted(set(MARCH_SOURCES.values())),
+            ms_by_route=k1_by_route,
+            ring_consumers=mw.ring_consumers(spec, dtype),
+            ring_slots=mw.ring_slots(spec, dtype),
+            stepper_split=k1_split,
+            one_row_a_packet_ms=E * n_p * (2 * spec.K * item + 4 * item + 8
+                                           + 4 * item + 4)
+            / HBM_BYTES_PER_S * 1e3),
         row("transpose_batched", 0.0, k2_ms, k2_plain,
             k2_bytes / HBM_BYTES_PER_S * 1e3, 0.0, k2_lib, k2_single),
         row("build_windows_batched", 0.0, k3_ms, k3_plain,
@@ -2326,9 +2471,11 @@ def phase_ensemble_path(tmp):
     expected = dict.fromkeys(WRAPPERS, 0)
     expected["march_batched"] = steps
     expected["transpose_batched"] = steps + 1   # and the first carry's
-    if launches != expected or sum(routes.values()) != steps:
+    took = [r for r, n in routes.items() if n]
+    if launches != expected or routes.get(took[0] if took else None) != steps:
         raise AssertionError(f"ensemble_path: launch counts {launches}, "
-                             f"routes {routes}, expected {expected}")
+                             f"routes {routes}, expected {expected}, all on "
+                             "one route")
     overflow = carry.overflow.cpu().tolist()
     if max(overflow) != 0 or not (carry.flow_state.step == steps).all():
         raise AssertionError(f"ensemble_path: overflow {overflow}, steps "
@@ -2404,6 +2551,11 @@ def phase_ensemble_path(tmp):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     s, es, cb = ens.setup_ensemble(cfgs)
+    # the one route the driver's launches took is the one the rule gives
+    rule = mw.march_route(s.march, cb.packet_x.dtype)
+    if took != [rule]:
+        raise AssertionError(f"ensemble_path: the batched march took {took}, "
+                             f"the rule gives {rule}")
     es = es.replace(T=np.full(E, ENSEMBLE_T))
     wdev = torch.tensor(wmax, dtype=torch.float32, device=cb.packet_x.device)
     alone, alone_host, alone_event, alone_ov = timed_chunks(

@@ -20,14 +20,19 @@ Kernels (C entry -> wrapper):
   swr_march_staged_f32, _f64    csrc/march.cuh (march_staged_f32.cu,
                                 march_staged_f64.cu): each warp's rows
                                 copied into shared memory first
+  swr_march_ring_f32, _f64      csrc/march_ring.cuh (march_ring_f32.cu,
+                                march_ring_f64.cu): one persistent block an
+                                SM, producer warps copying the rows into a
+                                ring of shared-memory slots while consumer
+                                warps march
                                 ops.march_window.march_gathered_cuda (rows
                                 read by cell from the window arrays) and
                                 march_cuda (pre-gathered rows), by the
                                 route ops.march_window.march_route gives
   swr_march_batched_f32, _f64,  the same kernels over the members of an
   swr_march_batched_staged_f32, ensemble in one launch, each member's
-  _f64                          substep length read from a float64 device
-                                array: ops.march_window.
+  _f64, swr_march_batched_      substep length read from a float64 device
+  ring_f32, _f64                array: ops.march_window.
                                 march_gathered_batched_cuda
   swr_transpose                 csrc/transpose.cu
                                 ops.march_window.transpose_cuda
@@ -125,7 +130,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
     for march in (lib.swr_march_f32, lib.swr_march_f64,
-                  lib.swr_march_staged_f32, lib.swr_march_staged_f64):
+                  lib.swr_march_staged_f32, lib.swr_march_staged_f64,
+                  lib.swr_march_ring_f32, lib.swr_march_ring_f64):
         march.restype = i32
         march.argtypes = [
             vp, vp, i64, i64,    # snapshot-1 / snapshot-2 windows, strides
@@ -140,7 +146,9 @@ def _bind(lib: ctypes.CDLL) -> None:
             vp]                  # stream
     for march in (lib.swr_march_batched_f32, lib.swr_march_batched_f64,
                   lib.swr_march_batched_staged_f32,
-                  lib.swr_march_batched_staged_f64):
+                  lib.swr_march_batched_staged_f64,
+                  lib.swr_march_batched_ring_f32,
+                  lib.swr_march_batched_ring_f64):
         march.restype = i32
         march.argtypes = [
             vp, vp,              # the members' window arrays, both snapshots
@@ -212,14 +220,17 @@ def load() -> ctypes.CDLL:
 
 
 def check(err: int, entry: str) -> None:
-    """Raise if a C entry returned a CUDA error (or -1: a configuration
-    the library has no kernel for; -2: a block whose rows do not fit in
-    an SM's shared memory)."""
+    """Raise if the C entry named `entry` returned a CUDA error (or -1: a
+    configuration the library has no kernel for; -2: a block whose rows,
+    or on the ring route its two slots of rows, do not fit in an SM's
+    shared memory)."""
     if err == 0:
         return
     if err == -2:
-        raise RuntimeError(f"{entry}: the block's rows do not fit in one "
-                           "SM's shared memory")
+        what = ("two ring slots of 32 rows" if "_ring_" in entry
+                else "the block's rows")
+        raise RuntimeError(f"{entry}: {what} do not fit in one SM's shared "
+                           "memory")
     if err < 0:
         raise RuntimeError(f"{entry}: no kernel for this configuration")
     msg = load().swr_error_string(err).decode()

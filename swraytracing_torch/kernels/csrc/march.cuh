@@ -54,7 +54,10 @@
 // rows fit in an SM's shared memory, else direct per-thread loads;
 // the (K, Np) layout is always direct, its loads being coalesced across
 // lanes already. A staged launch that does not fit is refused, not
-// rerouted.
+// rerouted. march_ring.cuh runs the same packets through a third route,
+// in which producer warps of a persistent block copy the rows into a ring
+// of slots while consumer warps march; the rule gives it the row sizes at
+// which the ring holds four consumer warps (float32 at K <= 128).
 //
 // Members. The same kernel marches the members of an ensemble in one
 // launch (B5: `_march_kernel` under `jax.vmap` in the JAX package's
@@ -66,10 +69,11 @@
 // so its results are the same bits. The single-member entries launch one
 // member (gridDim.y = 1) with the substep length as an argument.
 //
-// This header holds the kernel; march_f32.cu, march_f64.cu (direct) and
-// march_staged_f32.cu, march_staged_f64.cu (staged) instantiate it for one
+// This header holds the kernel; march_f32.cu, march_f64.cu (direct),
+// march_staged_f32.cu, march_staged_f64.cu (staged) and march_ring_f32.cu,
+// march_ring_f64.cu (ring, with march_ring.cuh) instantiate it for one
 // scalar type and route each, with the single-member and the ensemble
-// entry, so the four compile side by side.
+// entry, so the six compile side by side.
 
 #pragma once
 
@@ -275,46 +279,16 @@ __device__ __forceinline__ void stage_rows(const MarchArgs<T>& A, T* dst,
   __pipeline_wait_prior(0);
 }
 
+// Every substep and stage of one flow step for the packet `pkt` of the
+// member A points at, from its window rows r1, r2 (in shared memory when
+// STAGED), and its results written to out and ov. The staged and the ring
+// kernels (march_ring.cuh) both march a packet through this one function,
+// so the two give the same bits.
 template <typename T, bool GRAD, int STEPPER, bool STAGED>
-__global__ void __launch_bounds__(256) march_kernel(const MarchArgs<T> A0) {
-  // this block's member: its arrays and its substep length
-  MarchArgs<T> A = A0;
-  const long long member = blockIdx.y;
-  A.p1 += member * A0.member_win;
-  A.p2 += member * A0.member_win;
-  A.xk += member * 4 * A0.np;
-  A.out += member * 4 * A0.np;
-  A.oi += member * A0.np;
-  A.oj += member * A0.np;
-  A.ov += member * A0.np;
-  if (A0.sub_dt_e) A.sub_dt = A0.sub_dt_e[member];
-  const long long pkt = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const bool live = pkt < A.np;  // ragged last block
-  if (!STAGED && !live) return;
-  const int oi = live ? A.oi[pkt] : 0, oj = live ? A.oj[pkt] : 0;
-  // 64-bit: ncells*K passes 2^31 at 1024^2
-  const long long row = A.gathered ? (long long)oi * A.ny + oj : pkt;
-  const T* __restrict__ r1;
-  const T* __restrict__ r2;
-  if (STAGED) {
-    extern __shared__ __align__(8) unsigned char march_rows[];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int sw = 6 + 2 * A.margin;
-    const int K = (GRAD ? 2 : 6) * sw * sw;
-    const int stride = 2 * K + 1;
-    const long long first = pkt - lane;  // the warp's first packet
-    if (first >= A.np) return;           // the whole warp is past the end
-    const int nrows = (int)min(32LL, A.np - first);
-    T* mine = reinterpret_cast<T*>(march_rows) + (size_t)warp * 32 * stride;
-    stage_rows<T>(A, mine, stride, K, row, nrows, lane);
-    __syncwarp();
-    if (!live) return;
-    r1 = mine + lane * stride;
-    r2 = r1 + K;
-  } else {
-    r1 = A.p1 + row * A.sp;
-    r2 = A.p2 + row * A.sp;
-  }
+__device__ __forceinline__ void march_packet(const MarchArgs<T>& A,
+                                             const T* __restrict__ r1,
+                                             const T* __restrict__ r2, int oi,
+                                             int oj, long long pkt) {
   T x0 = A.xk[pkt], x1 = A.xk[A.np + pkt];
   T k0 = A.xk[2 * A.np + pkt], k1 = A.xk[3 * A.np + pkt];
   const T h = T(A.sub_dt);
@@ -390,53 +364,112 @@ __global__ void __launch_bounds__(256) march_kernel(const MarchArgs<T> A0) {
   A.ov[pkt] = ovt;
 }
 
+template <typename T, bool GRAD, int STEPPER, bool STAGED>
+__global__ void __launch_bounds__(256) march_kernel(const MarchArgs<T> A0) {
+  // this block's member: its arrays and its substep length
+  MarchArgs<T> A = A0;
+  const long long member = blockIdx.y;
+  A.p1 += member * A0.member_win;
+  A.p2 += member * A0.member_win;
+  A.xk += member * 4 * A0.np;
+  A.out += member * 4 * A0.np;
+  A.oi += member * A0.np;
+  A.oj += member * A0.np;
+  A.ov += member * A0.np;
+  if (A0.sub_dt_e) A.sub_dt = A0.sub_dt_e[member];
+  const long long pkt = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const bool live = pkt < A.np;  // ragged last block
+  if (!STAGED && !live) return;
+  const int oi = live ? A.oi[pkt] : 0, oj = live ? A.oj[pkt] : 0;
+  // 64-bit: ncells*K passes 2^31 at 1024^2
+  const long long row = A.gathered ? (long long)oi * A.ny + oj : pkt;
+  const T* __restrict__ r1;
+  const T* __restrict__ r2;
+  if (STAGED) {
+    extern __shared__ __align__(8) unsigned char march_rows[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int sw = 6 + 2 * A.margin;
+    const int K = (GRAD ? 2 : 6) * sw * sw;
+    const int stride = 2 * K + 1;
+    const long long first = pkt - lane;  // the warp's first packet
+    if (first >= A.np) return;           // the whole warp is past the end
+    const int nrows = (int)min(32LL, A.np - first);
+    T* mine = reinterpret_cast<T*>(march_rows) + (size_t)warp * 32 * stride;
+    stage_rows<T>(A, mine, stride, K, row, nrows, lane);
+    __syncwarp();
+    if (!live) return;
+    r1 = mine + lane * stride;
+    r2 = r1 + K;
+  } else {
+    r1 = A.p1 + row * A.sp;
+    r2 = A.p2 + row * A.sp;
+  }
+  march_packet<T, GRAD, STEPPER, STAGED>(A, r1, r2, oi, oj, pkt);
+}
+
 // Shared memory one SM can give its blocks on sm_90 (227 KB).
 constexpr size_t SMEM_PER_SM = 232448;
 
-template <typename T, bool GRAD, int STEPPER, bool STAGED>
+// How a launch reads its window rows: every thread its own row from device
+// memory, each warp its rows copied into shared memory first, or a
+// persistent block whose producer warps copy rows into a ring of slots
+// while its consumer warps march (march_ring.cuh).
+enum { ROUTE_DIRECT = 0, ROUTE_STAGED = 1, ROUTE_RING = 2 };
+
+// Defined in march_ring.cuh, which the ring route's sources include.
+template <typename T, bool GRAD, int STEPPER>
+int launch_ring_kernel(const MarchArgs<T>& A, int members, int threads,
+                       cudaStream_t stream);
+
+template <typename T, bool GRAD, int STEPPER, int ROUTE>
 int launch_kernel(const MarchArgs<T>& A, int members, int threads,
                   cudaStream_t stream) {
-  const long long bx = (A.np + threads - 1) / threads;
-  if (bx > 2147483647LL) return -1;
-  const dim3 blocks((unsigned)bx, (unsigned)members);
-  size_t smem = 0;
-  if (STAGED) {
-    const int sw = 6 + 2 * A.margin;
-    const size_t stride = 2 * (size_t)((GRAD ? 2 : 6) * sw * sw) + 1;
-    smem = (size_t)(threads / 32) * 32 * stride * sizeof(T);
-    if (smem > SMEM_PER_SM) return -2;
-    // More than 48 KB a block has to be asked for, per kernel and device;
-    // all of the SM's shared memory goes to the rows. Asked at every
-    // launch: the call is cheap and idempotent, and keeps no state here.
-    cudaError_t err =
-        cudaFuncSetAttribute(march_kernel<T, GRAD, STEPPER, STAGED>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM_PER_SM);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          march_kernel<T, GRAD, STEPPER, STAGED>,
-          cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
+  if constexpr (ROUTE == ROUTE_RING) {
+    return launch_ring_kernel<T, GRAD, STEPPER>(A, members, threads, stream);
+  } else {
+    constexpr bool STAGED = ROUTE == ROUTE_STAGED;
+    if (threads > 256) return -1;
+    const long long bx = (A.np + threads - 1) / threads;
+    if (bx > 2147483647LL) return -1;
+    const dim3 blocks((unsigned)bx, (unsigned)members);
+    size_t smem = 0;
+    if (STAGED) {
+      const int sw = 6 + 2 * A.margin;
+      const size_t stride = 2 * (size_t)((GRAD ? 2 : 6) * sw * sw) + 1;
+      smem = (size_t)(threads / 32) * 32 * stride * sizeof(T);
+      if (smem > SMEM_PER_SM) return -2;
+      // More than 48 KB a block has to be asked for, per kernel and device;
+      // all of the SM's shared memory goes to the rows. Asked at every
+      // launch: the call is cheap and idempotent, and keeps no state here.
+      cudaError_t err =
+          cudaFuncSetAttribute(march_kernel<T, GRAD, STEPPER, STAGED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_PER_SM);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            march_kernel<T, GRAD, STEPPER, STAGED>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return (int)err;
+    }
+    march_kernel<T, GRAD, STEPPER, STAGED>
+        <<<blocks, threads, smem, stream>>>(A);
+    return (int)cudaGetLastError();
   }
-  march_kernel<T, GRAD, STEPPER, STAGED>
-      <<<blocks, threads, smem, stream>>>(A);
-  return (int)cudaGetLastError();
 }
 
-template <typename T, bool GRAD, bool STAGED>
+template <typename T, bool GRAD, int ROUTE>
 int launch_stepper(const MarchArgs<T>& A, int stepper, int members,
                    int threads, cudaStream_t stream) {
   if (A.np == 0 || members == 0) return 0;
   switch (stepper) {
     case RK23:
-      return launch_kernel<T, GRAD, RK23, STAGED>(A, members, threads,
-                                                  stream);
+      return launch_kernel<T, GRAD, RK23, ROUTE>(A, members, threads, stream);
     case RK4:
-      return launch_kernel<T, GRAD, RK4, STAGED>(A, members, threads, stream);
+      return launch_kernel<T, GRAD, RK4, ROUTE>(A, members, threads, stream);
     case SYMPLECTIC:
-      return launch_kernel<T, GRAD, SYMPLECTIC, STAGED>(A, members, threads,
-                                                        stream);
+      return launch_kernel<T, GRAD, SYMPLECTIC, ROUTE>(A, members, threads,
+                                                       stream);
     default:
       return -1;
   }
@@ -446,15 +479,18 @@ int launch_stepper(const MarchArgs<T>& A, int stepper, int members,
 // nf = 6: (u, v, ux, uy, vx, vy) windows. stepper: 0 rk23, 1 rk4,
 // 2 symplectic. gathered: p1, p2 are (ncells, K) cell-window arrays and a
 // packet reads row oi*ny + oj (oi, oj trusted to lie in [0, n)); else row
-// `packet`. STAGED needs se == 1 and threads/32 warps' rows within an
-// SM's shared memory. members: the number of members (1 for a
+// `packet`. ROUTE_STAGED needs se == 1 and threads/32 warps' rows within
+// an SM's shared memory; ROUTE_RING needs se == 1, two slots of 32 rows
+// within it, and threads = 32 x (consumer warps + 1), the consumers fewer
+// than the slots. members: the number of members (1 for a
 // single-member launch), at most 65535; member m's windows start
 // member_win elements after member m-1's, its xk and out 4*np, its oi, oj
 // and ov np; sub_dt_e: the members' substep lengths on the device, or
 // null for `sub_dt` alone.
 // Returns cudaGetLastError() after the launch, -1 for a configuration
-// with no kernel, or -2 for a staged block whose rows pass SMEM_PER_SM.
-template <typename T, bool STAGED>
+// with no kernel, or -2 for a staged block whose rows pass SMEM_PER_SM or
+// a ring with fewer than two slots.
+template <typename T, int ROUTE>
 int launch(const void* p1, const void* p2, long long sp, long long se,
            int gathered, const void* xk, const void* oi, const void* oj,
            void* out, void* ov, long long np, double sub_dt,
@@ -485,15 +521,15 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
   A.gH = gH;
   A.margin = margin;
   A.nsub = nsub;
-  if (threads < 32 || threads > 256 || threads % 32 || margin < 0 ||
+  if (threads < 32 || threads > 384 || threads % 32 || margin < 0 ||
       nsub < 1 || members < 0 || members > 65535)
     return -1;
-  if (STAGED && se != 1) return -1;
+  if (ROUTE != ROUTE_DIRECT && se != 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (nf == 2)
-    return launch_stepper<T, true, STAGED>(A, stepper, members, threads, s);
+    return launch_stepper<T, true, ROUTE>(A, stepper, members, threads, s);
   if (nf == 6)
-    return launch_stepper<T, false, STAGED>(A, stepper, members, threads, s);
+    return launch_stepper<T, false, ROUTE>(A, stepper, members, threads, s);
   return -1;
 }
 
@@ -502,17 +538,17 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
 // as an argument; `batched` marches `members` members of (ncells, K)
 // window arrays read by cell (gathered), each with its own substep length
 // from the float64 device array sub_dt_e.
-#define SWR_MARCH_ENTRY(name, batched, T, STAGED)                            \
+#define SWR_MARCH_ENTRY(name, batched, T, ROUTE)                             \
   int name(                                                                  \
       const void* p1, const void* p2, long long sp, long long se,            \
       int gathered, const void* xk, const void* oi, const void* oj,          \
       void* out, void* ov, long long np, double sub_dt, int nx, int ny,      \
       double inv_dx, double inv_dy, double f2, double gH, int margin,        \
       int nsub, int nf, int stepper, int threads, void* stream) {            \
-    return launch<T, STAGED>(p1, p2, sp, se, gathered, xk, oi, oj, out, ov,  \
-                             np, sub_dt, nullptr, 1, 0, nx, ny, inv_dx,      \
-                             inv_dy, f2, gH, margin, nsub, nf, stepper,      \
-                             threads, stream);                               \
+    return launch<T, ROUTE>(p1, p2, sp, se, gathered, xk, oi, oj, out, ov,   \
+                            np, sub_dt, nullptr, 1, 0, nx, ny, inv_dx,       \
+                            inv_dy, f2, gH, margin, nsub, nf, stepper,       \
+                            threads, stream);                                \
   }                                                                          \
   int batched(                                                               \
       const void* win1, const void* win2, int members, long long ncells,     \
@@ -521,10 +557,10 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
       double inv_dx, double inv_dy, double f2, double gH, int margin,        \
       int nsub, int nf, int stepper, int threads, void* stream) {            \
     if (!sub_dt_e) return -1;                                                \
-    return launch<T, STAGED>(win1, win2, K, 1, 1, xk, oi, oj, out, ov, np,   \
-                             0.0, sub_dt_e, members, ncells * K, nx, ny,     \
-                             inv_dx, inv_dy, f2, gH, margin, nsub, nf,       \
-                             stepper, threads, stream);                      \
+    return launch<T, ROUTE>(win1, win2, K, 1, 1, xk, oi, oj, out, ov, np,    \
+                            0.0, sub_dt_e, members, ncells * K, nx, ny,      \
+                            inv_dx, inv_dy, f2, gH, margin, nsub, nf,        \
+                            stepper, threads, stream);                       \
   }
 
 }  // namespace

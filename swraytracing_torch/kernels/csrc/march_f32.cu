@@ -4,5 +4,5 @@
 #include "march.cuh"
 
 extern "C" {
-SWR_MARCH_ENTRY(swr_march_f32, swr_march_batched_f32, float, false)
+SWR_MARCH_ENTRY(swr_march_f32, swr_march_batched_f32, float, ROUTE_DIRECT)
 }

@@ -4,5 +4,5 @@
 #include "march.cuh"
 
 extern "C" {
-SWR_MARCH_ENTRY(swr_march_f64, swr_march_batched_f64, double, false)
+SWR_MARCH_ENTRY(swr_march_f64, swr_march_batched_f64, double, ROUTE_DIRECT)
 }

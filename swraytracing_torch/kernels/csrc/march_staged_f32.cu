@@ -4,5 +4,6 @@
 #include "march.cuh"
 
 extern "C" {
-SWR_MARCH_ENTRY(swr_march_staged_f32, swr_march_batched_staged_f32, float, true)
+SWR_MARCH_ENTRY(swr_march_staged_f32, swr_march_batched_staged_f32, float,
+                ROUTE_STAGED)
 }

@@ -4,5 +4,6 @@
 #include "march.cuh"
 
 extern "C" {
-SWR_MARCH_ENTRY(swr_march_staged_f64, swr_march_batched_staged_f64, double, true)
+SWR_MARCH_ENTRY(swr_march_staged_f64, swr_march_batched_staged_f64, double,
+                ROUTE_STAGED)
 }

@@ -58,8 +58,12 @@ call raises.
 
 Layouts: packet windows are (K, Np), or (Np, K) gather rows when
 `tiles_transposed`. The CUDA kernel takes both through strides. For the
-row layouts it first copies each warp's rows into shared memory (the
-`staged` route) while they fit; `march_route` is the rule.
+row layouts it copies the rows into shared memory before it marches: each
+warp its own 32 packets' rows and then marches them (the `staged` route,
+csrc/march.cuh), or producer warps in a persistent block fill a ring of
+slots while consumer warps march the packets of the slots already full
+(the `ring` route, csrc/march_ring.cuh); the third route, `direct`, reads
+every row per thread from device memory. `march_route` is the rule.
 """
 
 from __future__ import annotations
@@ -85,6 +89,8 @@ __all__ = [
     "fused_march",
     "march_route",
     "staged_block_limit",
+    "ring_slots",
+    "ring_consumers",
     "march_gathered_reference",
     "march_gathered_cuda",
     "fused_march_gathered",
@@ -119,13 +125,15 @@ class MarchSpec(NamedTuple):
     order: int = 2                 # Lagrange stencil half-width (Iord)
     margin: int = 1                # drift allowance, cells per flow step
     nf: int = 6                    # fields: u, v, ux, uy, vx, vy
-    # Threads (= packets) per CUDA block of the march kernel. A tuning
-    # value only: the kernel masks its ragged last block itself, so the
-    # packet count need not be a multiple of it. On the staged route
-    # (march_route) a block's warps must fit their rows into one SM's
-    # shared memory; a block too large for that raises. One warp a block
-    # packs an SM fullest whatever the row size, and measured no slower
-    # than larger blocks on either route.
+    # Threads (= packets) per CUDA block of the march kernel on the direct
+    # and staged routes (march_route). A tuning value only: the kernel
+    # masks its ragged last block itself, so the packet count need not be
+    # a multiple of it. On the staged route a block's warps must fit their
+    # rows into one SM's shared memory; a block too large for that raises.
+    # One warp a block packs an SM fullest whatever the row size, and
+    # measured no slower than larger blocks on either route. The ring
+    # route does not read it: its block, one an SM, is RING_PRODUCERS
+    # producer warps and ring_consumers(spec, dtype) consumer warps.
     block: int = 32
     tiles_transposed: bool = False # pw passed as (Np, K) gather rows
     # Windows carry only (u, v) (nf=2); the march evaluates the
@@ -589,33 +597,92 @@ def staged_block_limit(spec: MarchSpec, dtype: torch.dtype) -> int:
     return min(256, 32 * (SMEM_PER_SM // staged_warp_bytes(spec, dtype)))
 
 
+# The ring route's block (kernels/csrc/march_ring.cuh, whose constants of
+# the same names these are): RING_PRODUCERS producer warps, one for each
+# of an SM's four sub-partitions (one warp alone issues the element-sized
+# copies too slowly to keep up with the rows), and consumer warps.
+RING_PRODUCERS = 4
+# Shared memory a ring slot takes beside its 32 rows: its two barriers.
+RING_BARRIER_BYTES = 16
+# Slots of the ring that no consumer warp holds: the producers' copies in
+# flight while the other slots are marched, C = S - RING_SPARE_SLOTS. Of 7
+# slots (float32, K = 128), 4 consumers measured faster than 5 or 6 at both
+# entries (`ms_by_route` in chip_smoke.py's kernels line).
+RING_SPARE_SLOTS = 3
+# Consumer warps a ring block takes at most: with the producers, 384
+# threads, as many as the kernel's registers allow (a float64 ring holds
+# at most 6 slots, so at most 288 threads).
+RING_MAX_CONSUMERS = 8
+# Consumer warps below which march_route keeps the staged route: with 1
+# (float32 at K = 200 or 384, float64 at K = 128 or 200) the ring measured
+# 1.27 to 2.24 times the staged route's time at the main shape's packets,
+# with 4 (float32 at K = 128) 0.94 (march_routes_* of chip_smoke.py).
+RING_MIN_CONSUMERS = 4
+
+
+def ring_slots(spec: MarchSpec, dtype: torch.dtype) -> int:
+    """Slots of the ring route's block: as many batches of 32 rows, in the
+    staged route's layout, as fit in one SM's shared memory beside two
+    8-byte barriers each; floor(SMEM_PER_SM / staged_warp_bytes) on every
+    row size the march takes. The route needs 2."""
+    return SMEM_PER_SM // (staged_warp_bytes(spec, dtype) + RING_BARRIER_BYTES)
+
+
+def ring_consumers(spec: MarchSpec, dtype: torch.dtype) -> int:
+    """Consumer warps of a ring block: RING_SPARE_SLOTS slots fewer than
+    the ring holds, at least 1 and at most RING_MAX_CONSUMERS; always
+    fewer than the slots, as the kernel requires."""
+    return max(1, min(ring_slots(spec, dtype) - RING_SPARE_SLOTS,
+                      RING_MAX_CONSUMERS))
+
+
 def march_route(spec: MarchSpec, dtype: torch.dtype) -> str:
     """Which way the march kernel reads its window rows, from the layout
-    and (2K, element size) alone: "staged" (each warp first copies its 32
-    packets' rows into shared memory with coalesced asynchronous copies)
-    for the row layouts while one warp's rows fit in an SM's shared
-    memory (staging measured no slower than per-thread loads even with a
-    single warp resident); else "direct" (every thread reads its own row
-    from device memory as it goes). The (K, Np) layout is always direct:
-    its loads are coalesced across packets already. A rule on shapes, not
-    a fallback: a staged launch that fails raises."""
+    and (2K, element size) alone. The (K, Np) layout is always "direct"
+    (every thread reads its own row from device memory as it goes): its
+    loads are coalesced across packets already. The row layouts take
+    "ring" (producer warps of a persistent block copy rows into a ring of
+    shared-memory slots while consumer warps march) where the ring holds
+    RING_MIN_CONSUMERS consumer warps beside its spare slots; else
+    "staged" (each warp first copies its 32 packets' rows into shared
+    memory with coalesced asynchronous copies, then marches them) while
+    one warp's rows fit; else "direct". Staging measured no slower than
+    per-thread loads even with a single warp resident. The ring's readings
+    (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W, ms a call in a run
+    of calls, float32, K = 128, 4 consumer warps): the ensemble's launch at
+    Run I's shape 0.1295 against the staged route's 0.1349 and 0.1314 in
+    the same run; a single member's at the main shape 0.5535 against
+    0.5903 and 0.5862. Both entries read it faster, so both take it.
+    A rule on shapes, not a fallback: a launch that fails raises."""
     if not spec.tiles_transposed:
         return "direct"
+    if ring_consumers(spec, dtype) >= RING_MIN_CONSUMERS:
+        return "ring"
     return "staged" if staged_block_limit(spec, dtype) >= 32 else "direct"
 
 
-def _checked_route(name, spec: MarchSpec, dtype, route):
-    """The route a march launch takes: `route`, or where that is None the
-    one march_route gives; raises for an unknown route and for a block the
-    route does not take."""
+_ROUTES = ("staged", "direct", "ring")
+
+
+def _checked_route(name, spec: MarchSpec, dtype, route, consumers=None):
+    """The route a march launch takes and the threads of its block:
+    `route`, or where that is None the one march_route gives. The block is
+    spec.block on the staged and direct routes, and 32 x (RING_PRODUCERS +
+    consumer warps) on the ring route, the consumers `consumers` or where
+    that is None ring_consumers(spec, dtype). Raises for an unknown route,
+    a block the route does not take, and consumers named off the ring
+    route."""
     if route is None:
         route = march_route(spec, dtype)
-    if route not in ("staged", "direct"):
-        raise ValueError(f"{name}: route must be 'staged', 'direct' or None, "
-                         f"got {route!r}")
+    if route not in _ROUTES:
+        raise ValueError(f"{name}: route must be 'staged', 'direct', 'ring' "
+                         f"or None, got {route!r}")
     if not (32 <= spec.block <= 256 and spec.block % 32 == 0):
         raise ValueError("MarchSpec.block must be a multiple of 32 in "
                          f"[32, 256], got {spec.block}")
+    if consumers is not None and route != "ring":
+        raise ValueError(f"{name}: consumer warps are a setting of the ring "
+                         f"route, not of the {route} route")
     if route == "staged":
         limit = staged_block_limit(spec, dtype)
         if spec.block > limit:
@@ -625,29 +692,53 @@ def _checked_route(name, spec: MarchSpec, dtype, route):
                 f"memory ({staged_warp_bytes(spec, dtype)} bytes of "
                 f"{SMEM_PER_SM} per SM), so MarchSpec.block can be at most "
                 f"{limit} here; got {spec.block}")
-    return route
+        return route, spec.block
+    if route == "direct":
+        return route, spec.block
+    slots = ring_slots(spec, dtype)
+    if slots < 2:
+        raise ValueError(
+            f"{name}: the ring route needs two slots of 32 rows of 2K+1 = "
+            f"{2 * spec.K + 1} {dtype} values in one SM's shared memory "
+            f"({staged_warp_bytes(spec, dtype)} bytes a slot of "
+            f"{SMEM_PER_SM}); {slots} fits")
+    if consumers is None:
+        consumers = ring_consumers(spec, dtype)
+    if not 1 <= consumers <= min(slots - 1, RING_MAX_CONSUMERS):
+        raise ValueError(
+            f"{name}: the ring route's {slots} slots take 1 to "
+            f"{min(slots - 1, RING_MAX_CONSUMERS)} consumer warps; got "
+            f"{consumers}")
+    return route, 32 * (RING_PRODUCERS + consumers)
+
+
+def _march_entry(lib, route, dtype, batched=False):
+    """The C entry of the march kernel for this route and type."""
+    name = ("swr_march_" + ("batched_" if batched else "")
+            + ("" if route == "direct" else route + "_")
+            + ("f32" if dtype == torch.float32 else "f64"))
+    return name, getattr(lib, name)
 
 
 def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
-                  sub_dt, spec: MarchSpec, route):
+                  sub_dt, spec: MarchSpec, route, consumers=None):
     """Launch the march kernel for `wrapper` (march_cuda or
     march_gathered_cuda) on checked arguments (p1, p2: device addresses of
     the two snapshots' windows), by `route` or, where that is None, by the
-    route march_route gives. Adds the launch to `wrapper.launches` and,
+    route march_route gives (on the ring route with `consumers` consumer
+    warps, or ring_consumers'). Adds the launch to `wrapper.launches` and,
     under the route it took, to `wrapper.launches_by_route`. Returns
     (xk_out, overflow)."""
     from .. import kernels
 
-    route = _checked_route(wrapper.__name__, spec, xk.dtype, route)
+    route, threads = _checked_route(wrapper.__name__, spec, xk.dtype, route,
+                                    consumers)
     Np = xk.shape[-1]
     out = torch.empty_like(xk)
     ov = torch.empty((Np,), dtype=torch.int32, device=xk.device)
     if Np == 0:  # nothing to launch
         return out, ov
-    lib = kernels.load()
-    entry = getattr(lib, "swr_march_"
-                    + ("staged_" if route == "staged" else "")
-                    + ("f32" if xk.dtype == torch.float32 else "f64"))
+    name, entry = _march_entry(kernels.load(), route, xk.dtype)
     with torch.cuda.device(xk.device):
         err = entry(
             p1, p2, s_packet, s_elem, int(gathered),
@@ -655,9 +746,9 @@ def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
             out.data_ptr(), ov.data_ptr(), Np, float(sub_dt),
             spec.nx, spec.ny, 1.0 / spec.dx, 1.0 / spec.dy,
             spec.f ** 2, spec.Cg ** 2, spec.margin, spec.n_substeps,
-            spec.nf, _STEPPERS.index(spec.stepper), spec.block,
+            spec.nf, _STEPPERS.index(spec.stepper), threads,
             torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, f"swr_march ({route})")
+    kernels.check(err, name)
     wrapper.launches += 1
     wrapper.launches_by_route[route] += 1
     return out, ov
@@ -709,11 +800,11 @@ def march_cuda(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
 
 
 march_cuda.launches = 0
-march_cuda.launches_by_route = {"staged": 0, "direct": 0}
+march_cuda.launches_by_route = dict.fromkeys(_ROUTES, 0)
 
 
 def march_gathered_cuda(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec,
-                        route=None):
+                        route=None, consumers=None):
     """The fused march on the card with the gather inside the kernel
     (kernels/csrc/march.cuh): arguments and results as
     march_gathered_reference, CUDA tensors only, (ncells, K) window rows
@@ -721,10 +812,12 @@ def march_gathered_cuda(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec,
     to read, that layout gathers first and calls march_cuda). A packet
     reads row oi*ny + oj of win1 and of win2; `oi`, `oj` are trusted to lie
     in [0, nx) and [0, ny), as packet_cells makes them. Rows are read by
-    the route march_route gives; `route` ("staged" or "direct") names one
-    instead, to hold the two against each other and to time both (the
-    results are the same bits; a staged launch whose block does not fit
-    raises). Launches on the current stream and does not synchronise.
+    the route march_route gives; `route` ("staged", "ring" or "direct")
+    names one instead, to hold the routes against each other and to time
+    them (the results are the same bits; a staged launch whose block does
+    not fit raises, as does a ring launch where two slots do not fit), and
+    `consumers` the ring block's consumer warps (ring_consumers' by
+    default). Launches on the current stream and does not synchronise.
     Counts its launches in `march_gathered_cuda.launches`, and by the route
     each took in `march_gathered_cuda.launches_by_route`."""
     name = "march_gathered_cuda"
@@ -739,11 +832,11 @@ def march_gathered_cuda(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec,
                           xk, oi, oj, spec)
     return _launch_march(march_gathered_cuda, win1.data_ptr(),
                          win2.data_ptr(), spec.K, 1, True, xk, oi, oj, sub_dt,
-                         spec, route)
+                         spec, route, consumers)
 
 
 march_gathered_cuda.launches = 0
-march_gathered_cuda.launches_by_route = {"staged": 0, "direct": 0}
+march_gathered_cuda.launches_by_route = dict.fromkeys(_ROUTES, 0)
 
 
 def transpose_reference(W: torch.Tensor) -> torch.Tensor:
@@ -979,7 +1072,7 @@ def march_gathered_batched_reference(win1, win2, xk, oi, oj, sub_dt,
 
 
 def march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
-                                spec: MarchSpec, route=None):
+                                spec: MarchSpec, route=None, consumers=None):
     """The fused march of every member of an ensemble in ONE launch
     (kernels/csrc/march.cuh, the member on the grid's second axis):
     arguments and results as march_gathered_batched_reference, contiguous
@@ -987,8 +1080,11 @@ def march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
     `sub_dt` is a float64 (E,) CUDA tensor, read by the kernel and rounded
     to the packets' type as march_gathered_cuda rounds its argument, so a
     member's result is the bits of its single-member launch. Rows are read
-    by the route march_route gives, or by `route`. Launches on the current
-    stream and does not synchronise. Counts its launches in
+    by the route march_route gives, or by `route` (on the ring route with
+    `consumers` consumer warps, as march_gathered_cuda takes them). The
+    ring route numbers the batches of 32 packets over all members, so its
+    persistent blocks run on from one member into the next. Launches on
+    the current stream and does not synchronise. Counts its launches in
     `march_gathered_batched_cuda.launches`, and by route in
     `.launches_by_route`."""
     from .. import kernels
@@ -1011,15 +1107,13 @@ def march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
                   ("sub_dt", sub_dt, torch.float64, (E,)))
     if E > 65535:
         raise ValueError(f"{name}: at most 65535 members, got {E}")
-    route = _checked_route(name, spec, xk.dtype, route)
+    route, threads = _checked_route(name, spec, xk.dtype, route, consumers)
     out = torch.empty_like(xk)
     ov = torch.empty((E, Np), dtype=torch.int32, device=xk.device)
     if E == 0 or Np == 0:
         return out, ov
-    lib = kernels.load()
-    entry = getattr(lib, "swr_march_batched_"
-                    + ("staged_" if route == "staged" else "")
-                    + ("f32" if xk.dtype == torch.float32 else "f64"))
+    entry_name, entry = _march_entry(kernels.load(), route, xk.dtype,
+                                     batched=True)
     with torch.cuda.device(xk.device):
         err = entry(
             win1.data_ptr(), win2.data_ptr(), E, ncells, spec.K,
@@ -1027,16 +1121,16 @@ def march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
             ov.data_ptr(), Np, sub_dt.data_ptr(), spec.nx, spec.ny,
             1.0 / spec.dx, 1.0 / spec.dy, spec.f ** 2, spec.Cg ** 2,
             spec.margin, spec.n_substeps, spec.nf,
-            _STEPPERS.index(spec.stepper), spec.block,
+            _STEPPERS.index(spec.stepper), threads,
             torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, f"swr_march_batched ({route})")
+    kernels.check(err, entry_name)
     march_gathered_batched_cuda.launches += 1
     march_gathered_batched_cuda.launches_by_route[route] += 1
     return out, ov
 
 
 march_gathered_batched_cuda.launches = 0
-march_gathered_batched_cuda.launches_by_route = {"staged": 0, "direct": 0}
+march_gathered_batched_cuda.launches_by_route = dict.fromkeys(_ROUTES, 0)
 
 
 def march_gathered_batched(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec):

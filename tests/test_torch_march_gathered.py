@@ -365,7 +365,8 @@ def test_staged_launch_refuses_a_block_that_does_not_fit():
         tmw._launch_march(*launch, ts, "fastest")
     assert kernels._lib is None
     assert tmw.march_gathered_cuda.launches_by_route == {"staged": 0,
-                                                         "direct": 0}
+                                                         "direct": 0,
+                                                         "ring": 0}
 
 
 def test_shared_memory_size_is_the_kernel_source_s():
@@ -382,7 +383,7 @@ def test_shared_memory_size_is_the_kernel_source_s():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("nf,margin,dtype,transposed,route", [
-    (2, 1, torch.float32, True, "staged"),    # both coupled main paths
+    (2, 1, torch.float32, True, "ring"),      # both coupled main paths
     (2, 2, torch.float32, True, "staged"),
     (6, 1, torch.float32, True, "staged"),    # two warps' rows an SM
     (2, 1, torch.float64, True, "staged"),    # three
@@ -403,5 +404,7 @@ def test_march_route(nf, margin, dtype, transposed, route):
     assert tmw.staged_warp_bytes(spec, dtype) == warp_bytes
     limit = tmw.staged_block_limit(spec, dtype)
     assert limit == min(256, 32 * (tmw.SMEM_PER_SM // warp_bytes))
-    # the default block fits wherever the rule says staged, and only there
-    assert (spec.block <= limit) == (route == "staged" or not transposed)
+    # the default block fits wherever the rule says staged or ring (whose
+    # rows fit a warp of the staged route too), and only there
+    assert (spec.block <= limit) == (route in ("staged", "ring")
+                                     or not transposed)

@@ -91,17 +91,18 @@ def test_sources_name_no_jax_import():
 def test_kernel_sources_ship_with_the_package():
     names = [s.name for s in kernels.sources()]
     assert names == ["build_windows.cu", "march_f32.cu", "march_f64.cu",
-                     "march_rays.cu", "march_staged_f32.cu",
+                     "march_rays.cu", "march_ring_f32.cu",
+                     "march_ring_f64.cu", "march_staged_f32.cu",
                      "march_staged_f64.cu", "transpose.cu"]
     csrc = kernels.sources()[0].parent
     for s in kernels.sources():
         assert 'extern "C"' in s.read_text()
-    for name in ("march.cuh", "transpose.cu", "build_windows.cu",
-                 "march_rays.cu"):
+    for name in ("march.cuh", "march_ring.cuh", "transpose.cu",
+                 "build_windows.cu", "march_rays.cu"):
         assert "__global__" in (csrc / name).read_text(), name
     # every header a source includes ships too (and enters the build's hash)
     headers = {h.name for h in csrc.glob("*.cuh")}
-    assert headers == {"march.cuh", "scalar.cuh"}
+    assert headers == {"march.cuh", "march_ring.cuh", "scalar.cuh"}
     for src in csrc.iterdir():
         for line in src.read_text().splitlines():
             if line.startswith('#include "'):
