@@ -1,0 +1,1 @@
+"""Ways of driving the port, one module each, named by a traffic file."""
