@@ -46,6 +46,7 @@ from ..ops.grid import SpectralGrid, resolve_device
 from ..ops import interp as _interp
 from ..ops import march_window as mw
 from ..ops import spectral as sp
+from ..utils.profiling import span
 from . import rays
 from .dispersion import Dispersion
 from .fields import BlendedFlow, flow_from_qk
@@ -256,11 +257,26 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
     stage of n_substeps rk23 / rk4 steps with the alpha ramp, or of
     symplectic steps at alpha = i/m + 0.5/m, in plain PyTorch; it has no
     overflow counter.
+
+    The step runs inside the span swr.step (utils/profiling.span), its
+    flow step inside swr.flow and the velocity grids inside swr.fields.
     """
+    with span("swr.step"):
+        return _lockstep_step(carry, flow_step_fn, fields_fn, grid, disp, dt,
+                              packet_delay, n_substeps, stepper, march,
+                              window_min_np, sub_dt)
+
+
+def _lockstep_step(carry, flow_step_fn, fields_fn, grid, disp, dt,
+                   packet_delay, n_substeps, stepper, march, window_min_np,
+                   sub_dt):
+    """lockstep_step inside its span."""
     if window_min_np is None:
         window_min_np = _interp._WINDOW_MIN_NP
-    new_state = flow_step_fn(carry.flow_state)
-    fields2 = fields_fn(new_state)
+    with span("swr.flow"):
+        new_state = flow_step_fn(carry.flow_state)
+    with span("swr.fields"):
+        fields2 = fields_fn(new_state)
     Np = carry.packet_x.shape[-1]
 
     exp_nf = march_n_fields(march)
@@ -347,46 +363,45 @@ def _march_step(carry, new_state, fields2, sub_dt, n_substeps, stepper,
     if win1 is None or win1.shape != win2.shape:
         win1 = mw.build_gather_windows(carry.prev_fields, march)
     x, k = carry.packet_x, carry.packet_k
-    if x.dim() == 3:
-        if not march.tiles_transposed:
-            raise ValueError("an ensemble's march reads (ncells, K) window "
-                             "rows: tiles_transposed=True")
-        oi, oj = mw.packet_cells(x[:, 0], x[:, 1], march)
-        out, ov = mw.march_gathered_batched(
-            win1, win2, torch.cat([x, k], dim=1), oi, oj, sub_dt, march)
-        new_ov = ov.amax(dim=1)
+    if x.dim() == 3 and not march.tiles_transposed:
+        raise ValueError("an ensemble's march reads (ncells, K) window "
+                         "rows: tiles_transposed=True")
+    with span("swr.march"):
+        if x.dim() == 3:
+            oi, oj = mw.packet_cells(x[:, 0], x[:, 1], march)
+            out, ov = mw.march_gathered_batched(
+                win1, win2, torch.cat([x, k], dim=1), oi, oj, sub_dt, march)
+            new_ov = ov.amax(dim=1)
+        else:
+            oi, oj = mw.packet_cells(x[0], x[1], march)
+            out, ov = _march_packets(win1, win2, torch.cat([x, k], dim=0),
+                                     oi, oj, sub_dt, march)
+            new_ov = ov.max()
         overflow = (new_ov if carry.overflow is None
                     else torch.maximum(carry.overflow, new_ov))
-        out_win = win2 if carry.prev_win is not None else None
-        return CoupledCarry(flow_state=new_state, packet_x=out[:, :2],
-                            packet_k=out[:, 2:], prev_fields=fields2,
-                            prev_win=out_win, overflow=overflow)
-    oi, oj = mw.packet_cells(x[0], x[1], march)
-    xk = torch.cat([x, k], dim=0)
+    out_win = win2 if carry.prev_win is not None else None
+    return CoupledCarry(flow_state=new_state, packet_x=out[..., :2, :],
+                        packet_k=out[..., 2:, :], prev_fields=fields2,
+                        prev_win=out_win, overflow=overflow)
+
+
+def _march_packets(win1, win2, xk, oi, oj, sub_dt, march):
+    """One run's march from the two snapshots' window arrays."""
     if march.tiles_transposed:
         # (ncells, K) rows: the march reads each packet's row of both
         # window arrays by its cell; nothing is stacked or gathered first.
-        out, ov = mw.fused_march_gathered(win1, win2, xk, oi, oj, sub_dt,
-                                          march)
-    elif march.combined_gather:
+        return mw.fused_march_gathered(win1, win2, xk, oi, oj, sub_dt, march)
+    if march.combined_gather:
         # Both snapshots' windows stacked on the K axis -> ONE gather per
         # packet per flow step.
         winc = torch.cat([win1, win2],
                          dim=-1 if march.tiles_transposed else 0)
         pwc = mw.gather_packet_windows(winc, oi, oj, march)
         dummy = pwc.new_zeros((1, 1))
-        out, ov = mw.fused_march(pwc, dummy, xk, oi, oj, sub_dt, march)
-    else:
-        pw1 = mw.gather_packet_windows(win1, oi, oj, march)
-        pw2 = mw.gather_packet_windows(win2, oi, oj, march)
-        out, ov = mw.fused_march(pw1, pw2, xk, oi, oj, sub_dt, march)
-    new_ov = ov.max()
-    overflow = (new_ov if carry.overflow is None
-                else torch.maximum(carry.overflow, new_ov))
-    out_win = win2 if carry.prev_win is not None else None
-    return CoupledCarry(flow_state=new_state, packet_x=out[:2],
-                        packet_k=out[2:], prev_fields=fields2,
-                        prev_win=out_win, overflow=overflow)
+        return mw.fused_march(pwc, dummy, xk, oi, oj, sub_dt, march)
+    pw1 = mw.gather_packet_windows(win1, oi, oj, march)
+    pw2 = mw.gather_packet_windows(win2, oi, oj, march)
+    return mw.fused_march(pw1, pw2, xk, oi, oj, sub_dt, march)
 
 
 def prepare_carry_windows(carry: CoupledCarry, remat: bool = False,

@@ -73,6 +73,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = [
     "MarchSpec",
     "required_margin",
@@ -249,18 +251,20 @@ def build_gather_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
 
     An ensemble's (E, nf, nx, ny) fields give (E, ...) arrays, member by
     member the same, through the batched kernels (build_windows_batched,
-    transpose_batched): one launch for all members."""
-    if F.dim() == 4:
+    transpose_batched): one launch for all members. Runs inside the span
+    swr.windows (utils/profiling.span)."""
+    with span("swr.windows"):
+        if F.dim() == 4:
+            if spec.tiles_transposed and spec.fused_build:
+                return build_windows_batched(F, spec)
+            W = build_margin_windows(F, spec)
+            return transpose_batched(W) if spec.tiles_transposed else W
         if spec.tiles_transposed and spec.fused_build:
-            return build_windows_batched(F, spec)
+            return build_windows_fused(F, spec)
         W = build_margin_windows(F, spec)
-        return transpose_batched(W) if spec.tiles_transposed else W
-    if spec.tiles_transposed and spec.fused_build:
-        return build_windows_fused(F, spec)
-    W = build_margin_windows(F, spec)
-    if not spec.tiles_transposed:
-        return W
-    return window_transpose(W)
+        if not spec.tiles_transposed:
+            return W
+        return window_transpose(W)
 
 
 def packet_cells(x: torch.Tensor, y: torch.Tensor, spec: MarchSpec):
@@ -989,13 +993,14 @@ def _march_forward(ctx, kernel, plain, w1, w2, xk, oi, oj, sub_dt, spec):
 
 def _march_backward(ctx, plain, ct_xk):
     """Cotangents of a march's inputs (w1, w2, xk, oi, oj, sub_dt, spec) by
-    autograd through its plain version on the saved inputs."""
+    autograd through its plain version on the saved inputs, inside the
+    span swr.march.backward."""
     w1, w2, xk, oi, oj, *rest = ctx.saved_tensors
     sub_dt = rest[0] if rest else ctx.sub_dt
     needs = ctx.needs_input_grad
     args = [w1, w2, xk, sub_dt]
     wanted = [needs[0], needs[1], needs[2], needs[5]]
-    with torch.enable_grad():
+    with span("swr.march.backward"), torch.enable_grad():
         leaves = [a.detach().requires_grad_(True) if w else a
                   for a, w in zip(args, wanted)]
         out, _ = plain(leaves[0], leaves[1], leaves[2], oi, oj, leaves[3],
