@@ -64,9 +64,11 @@ set to 0 just before it and read just after:
                  kernel of the port: a frozen run through the
                  Childress-Soward flow at 2^20 packets against the CPU, the
                  O(1)-memory reversible integrator against plain autograd,
-                 a gridded frozen run through prebuilt windows and through
-                 the stencil, the bicubic and direct spectral evaluations
-                 against the CPU;
+                 a gridded frozen run, which takes raytrace_frozen's kernel
+                 route (K4 and its orderings, the phase's only launches),
+                 against its plain route through prebuilt windows and
+                 through the stencil, the bicubic and direct spectral
+                 evaluations against the CPU;
   solvers_path   the remaining solvers, which launch no kernel of the port
                  (torch.fft and the plain stencil): every RSW variant,
                  swknd with particles, the 1-D solvers, the C-grid model,
@@ -154,7 +156,7 @@ from swraytracing_torch.models.dispersion import Dispersion
 from swraytracing_torch.models.fields import (BlendedFlow, GriddedFlow,
                                               flow_from_psi_grid, flow_from_qk)
 from swraytracing_torch.models.exact_linear import plane_wave_ic
-from swraytracing_torch.models.frozen import (raytrace_frozen,
+from swraytracing_torch.models.frozen import (_frozen_plain, raytrace_frozen,
                                               raytrace_rsw_restart, ring_ics)
 from swraytracing_torch.models.reversible import make_reversible_integrator
 from swraytracing_torch.ops import march_rays as mr
@@ -3146,15 +3148,16 @@ def reversible_vs_plain(dev, disp, steps):
 
 def phase_analytic_path(dev):
     """The analytic and spectral evaluators on the card, the launch counts
-    set to 0 just before and read just after (no kernel of the port
-    runs): raytrace_frozen through the Childress–Soward flow at 2^20
-    packets against the same run of the first 4096 packets on the CPU;
-    the O(1)-memory integrator against plain autograd; raytrace_frozen
-    through a gridded 512^2 snapshot through prebuilt windows (its switch
-    from interp._WINDOW_MIN_NP packets, as the JAX package's) and through
-    the stencil (the switch moved past the packet count), the reading the
-    switch was taken by; interpolate_cubic and the direct spectral evaluation
-    against the CPU."""
+    set to 0 just before and read just after: raytrace_frozen through the
+    Childress–Soward flow at 2^20 packets against the same run of the
+    first 4096 packets on the CPU; the O(1)-memory integrator against
+    plain autograd; a gridded 512^2 snapshot, where raytrace_frozen takes
+    its kernel route (K4, the phase's only launches: one a segment, and
+    one ordering each), against its plain route through prebuilt windows
+    (its switch from interp._WINDOW_MIN_NP packets, as the JAX package's)
+    and through the stencil (the switch moved past the packet count), the
+    reading the switch was taken by; interpolate_cubic and the direct
+    spectral evaluation against the CPU."""
     reset_launches()
     t_phase = time.perf_counter()
     disp = Dispersion(f=3.0, Cg=1.0)
@@ -3206,21 +3209,28 @@ def phase_analytic_path(dev):
     gx0, gk0 = ring_ics(GRIDDED["n_packets"], 2.0, disp, device=dev,
                         dtype=torch.float32)
     gdt, gsteps = GRIDDED["dt"], GRIDDED["steps"]
-    # raytrace_frozen builds the windows itself from
+    # the plain route builds the windows itself from
     # interp._WINDOW_MIN_NP packets on (timed with the run); the stencil
-    # run raises that threshold past the packet count
+    # run raises that threshold past the packet count. raytrace_frozen
+    # itself takes the kernel route here
     if GRIDDED["n_packets"] < interp._WINDOW_MIN_NP:
         raise AssertionError("gridded frozen run: below the window switch")
     stencil_only = GRIDDED["n_packets"] + 1
     ways = {"stencil": lambda: window_threshold_at(stencil_only),
-            "windowed": contextlib.nullcontext}
+            "windowed": contextlib.nullcontext,
+            "kernel": contextlib.nullcontext}
     gridded = {}
     finals = {}
-    for name in ("stencil", "windowed", "windowed", "stencil"):
+    routes = dict(raytrace_frozen.routes)
+    for name in ("stencil", "windowed", "kernel", "kernel", "windowed",
+                 "stencil"):
         def run():
             with ways[name]():
-                return raytrace_frozen(gflow, gx0, gk0, disp, gdt, gsteps,
-                                       save_every=gsteps)
+                if name == "kernel":
+                    return raytrace_frozen(gflow, gx0, gk0, disp, gdt,
+                                           gsteps, save_every=gsteps)
+                return _frozen_plain(gflow, gx0, gk0, disp, gdt, gsteps,
+                                     gsteps, "symplectic")
         if name not in finals:
             run()                                      # warm-up
         torch.cuda.reset_peak_memory_stats()
@@ -3236,13 +3246,23 @@ def phase_analytic_path(dev):
     if not max(dx, dk) <= 1e-4:
         raise AssertionError(f"gridded frozen run, windowed against "
                              f"stencil: x {dx}, k {dk}")
+    kernel_err = compare_rays(finals["kernel"], finals["stencil"],
+                              RAYS_F32_ATOL,
+                              "gridded frozen run, kernel route vs stencil")
+    routes = {r: n - routes[r] for r, n in raytrace_frozen.routes.items()}
+    if routes != {"kernel": 3, "plain": 0}:
+        raise AssertionError(f"gridded frozen run: routes {routes}")
     best = {n: min(v["seconds"]) for n, v in gridded.items()}
     gridded_run = dict(GRIDDED, dtype="float32", ways=gridded,
                        windowed_over_stencil=best["windowed"]
                        / best["stencil"],
                        faster="windowed" if best["windowed"]
                        < best["stencil"] else "stencil",
-                       max_abs_dx=dx, max_abs_dk=dk)
+                       stencil_over_kernel=best["stencil"] / best["kernel"],
+                       windowed_over_kernel=best["windowed"] / best["kernel"],
+                       raytrace_frozen_routes=routes,
+                       max_abs_dx=dx, max_abs_dk=dk,
+                       kernel_route_max_abs_err_vs_stencil=kernel_err)
     del gflow, gx0, gk0, finals
     # (4) interpolate_cubic and the direct spectral evaluation, card vs CPU
     rng = np.random.default_rng(17)
@@ -3265,8 +3285,12 @@ def phase_analytic_path(dev):
                              f"{cubic_err}, eval_spectrum_and_grad_at "
                              f"{spec_err}")
     launches = read_launches()
-    if any(launches.values()):
-        raise AssertionError(f"analytic_path launched a kernel: {launches}")
+    expected = dict.fromkeys(WRAPPERS, 0)
+    expected["march_rays"] = expected["cell_order"] = 3 * len(mr.split_steps(
+        gsteps, mr.segment_steps(gdt, grid, disp)))
+    if launches != expected:
+        raise AssertionError(f"analytic_path launches {launches}, expected "
+                             f"{expected} (the gridded run's kernel route)")
     emit("analytic_path", analytic_frozen=analytic_run,
          reversible=reversible, gridded_frozen=gridded_run,
          card_vs_cpu=dict(

@@ -16,10 +16,22 @@ of swraytracing_tpu/models/frozen.py:
     geostrophic part + spatially varying depth H = 1 + eta_g using the
     x-k-a stepper with the wave-action equation (step_packet_xka.m:63-91).
 
-As in the JAX package, `raytrace_frozen` steps with the plain integrators
-of models/rays.py (through prebuilt windows from 65536 packets on), and
-`raytrace_rsw_restart` with rays.rk4_xka_step through the stencil; the
-one-kernel march of a frozen flow is ops/march_rays.march_rays.
+`raytrace_frozen` takes one of two routes by what it can see, and counts
+each in `raytrace_frozen.routes`. On the kernel route (CUDA packets,
+float32 or float64, a GriddedFlow of six grids with a stencil order the
+kernel is built for, the symplectic stepper) each save interval is one
+call of ops/march_rays.march_rays, the march kernel (K4) with the packets
+ordered by cell. On the plain route (everything else: CPU tensors,
+analytic or blended flows, the other three integrators) it steps with the
+plain integrators of models/rays.py, as the JAX package does (through
+prebuilt windows from 65536 packets on). `raytrace_rsw_restart` steps with
+rays.rk4_xka_step through the stencil.
+
+The port's spans (utils/profiling.span, off unless a spans() or trace()
+block is open): swr.frozen (a raytrace_frozen call), swr.frozen.march
+(each march_rays call of the kernel route) and swr.frozen.diag (a frame's
+omega and Omega_abs, both routes); inside march_rays, ops/march_rays opens
+swr.rays.order around each ordering by cell.
 """
 
 from __future__ import annotations
@@ -32,7 +44,9 @@ import torch
 from ..io import binio
 from ..ops.grid import SpectralGrid, as_tensor, resolve_device
 from ..ops import interp as _interp
+from ..ops import march_rays as _march_rays
 from ..ops import spectral as sp
+from ..utils.profiling import span
 from .dispersion import Dispersion
 from .fields import GriddedFlow, flow_from_qk
 from . import rays
@@ -84,18 +98,88 @@ _STEPPERS = {
 }
 
 
+# Calls of raytrace_frozen by route, also raytrace_frozen.routes (a dict
+# of the module, so a wrapper put in the function's place counts the same)
+_ROUTES_TAKEN = {"kernel": 0, "plain": 0}
+
+
+def frozen_route(flow, x0, k0, stepper: str) -> str:
+    """The route raytrace_frozen takes: "kernel" for CUDA packets in
+    float32 or float64 marched by the symplectic stepper through a
+    GriddedFlow of six grids, of their dtype and device, whose stencil
+    order the march kernel is built for (ops/march_rays._ORDERS); "plain"
+    for everything else."""
+    if not (stepper == "symplectic" and isinstance(flow, GriddedFlow)
+            and x0.is_cuda and x0.dtype in (torch.float32, torch.float64)
+            and flow.order in _march_rays._ORDERS):
+        return "plain"
+    grid = flow.grid
+    same = all(t.dtype == x0.dtype and t.device == x0.device
+               for t in (k0, flow.fields))
+    six = tuple(flow.fields.shape) == (6, grid.nx, grid.ny)
+    return "kernel" if same and six else "plain"
+
+
 def raytrace_frozen(flow, x0, k0, disp: Dispersion, dt: float, nsteps: int,
                     save_every: int = 1, stepper: str = "symplectic"
                     ) -> FrozenResult:
     """Integrate packets through a steady flow and collect the
-    conservation diagnostics. Runs on the device of x0.
+    conservation diagnostics: nsteps // save_every frames, one after each
+    save_every steps (steps past the last whole frame are not taken). Runs
+    on the device of x0, by the route frozen_route gives.
 
-    A GriddedFlow without windows gets them prebuilt from
-    ops.interp._WINDOW_MIN_NP packets on (the JAX package's switch): the
-    build amortises over the whole run, and each evaluation gathers one
-    row a packet. On one H100 at 512^2 and 2^20 packets, 20 steps in
-    float32, the windowed run took 0.73 of the stencil's time, build
-    included (chip_smoke.py, phase analytic_path)."""
+    The kernel route marches each frame's save_every steps in one call of
+    ops/march_rays.march_rays (the kernel's segments and orderings inside
+    it), and evaluates Omega_abs through the stencil on the velocity grids
+    alone: on one H100 at 2^20 packets 2.0 ms an evaluation, against 4.0
+    ms through the six grids and 14.1 ms a call for windows built once and
+    read five times. On the plain route a GriddedFlow without windows gets
+    them prebuilt from ops.interp._WINDOW_MIN_NP packets on (the JAX
+    package's switch): the build amortises over the whole run, and each
+    evaluation gathers one row a packet. On one H100 at 512^2 and 2^20
+    packets, 20 steps in float32, the windowed run took 0.73 of the
+    stencil's time, build included (chip_smoke.py, phase analytic_path)."""
+    with span("swr.frozen"):
+        route = frozen_route(flow, x0, k0, stepper)
+        _ROUTES_TAKEN[route] += 1
+        if route == "kernel":
+            return _frozen_kernel(flow, x0, k0, disp, dt, nsteps, save_every)
+        return _frozen_plain(flow, x0, k0, disp, dt, nsteps, save_every,
+                             stepper)
+
+
+raytrace_frozen.routes = _ROUTES_TAKEN
+
+
+def _frozen_kernel(flow, x0, k0, disp, dt, nsteps, save_every):
+    """The kernel route of raytrace_frozen: one march_rays call a frame
+    (on CPU tensors march_rays runs its plain version, which the tests
+    hold this route's frames to)."""
+    fields, grid = flow.fields.contiguous(), flow.grid
+    x, k = x0.contiguous(), k0.contiguous()
+    xs, ks = [], []
+    for _ in range(nsteps // save_every):
+        with span("swr.frozen.march"):
+            x, k = _march_rays.march_rays(fields, x, k, grid, disp, dt,
+                                          save_every, flow.order)
+        xs.append(x)
+        ks.append(k)
+    empty = x0.new_zeros((0,) + tuple(x0.shape))
+    ts = torch.tensor([(j + 1) * save_every * dt for j in range(len(xs))],
+                      dtype=torch.float64)
+
+    def abs_at(x, k):
+        return disp.absolute_frequency(
+            k, torch.stack(flow.velocity_at(x[0], x[1])))
+
+    return _diagnosed(disp, abs_at, x0, k0,
+                      torch.stack(xs) if xs else empty,
+                      torch.stack(ks) if ks else empty, ts)
+
+
+def _frozen_plain(flow, x0, k0, disp, dt, nsteps, save_every, stepper):
+    """The plain route of raytrace_frozen: the integrator's steps one by
+    one (models/rays.integrate_rays)."""
     if (isinstance(flow, GriddedFlow) and flow.win is None
             and x0.shape[-1] >= _interp._WINDOW_MIN_NP):
         flow = flow.windowed()
@@ -107,17 +191,27 @@ def raytrace_frozen(flow, x0, k0, disp: Dispersion, dt: float, nsteps: int,
     def abs_at(x, k):
         return disp.absolute_frequency(k, flow.at(x[0], x[1]).uv)
 
-    om_abs0 = abs_at(x0, k0)
+    return _diagnosed(disp, abs_at, x0, k0, xs, ks, ts)
+
+
+def _diagnosed(disp, abs_at, x0, k0, xs, ks, ts) -> FrozenResult:
+    """The frames xs, ks (nframes, 2, Np) at times ts with their omega and
+    Omega_abs, and Omega_abs at the start, through abs_at(x, k)."""
+    with span("swr.frozen.diag"):
+        om_abs0 = abs_at(x0, k0)
     nframes = xs.shape[0]
     empty = x0.new_zeros((0, x0.shape[-1]))
     # frame by frame: the stencil gather of one frame is already
     # 36 * 6 values per packet
-    om = (torch.stack([disp.omega(ks[j]) for j in range(nframes)])
-          if nframes else empty)
-    om_abs = (torch.stack([abs_at(xs[j], ks[j]) for j in range(nframes)])
-              if nframes else empty)
-    return FrozenResult(x=xs, k=ks, t=ts, omega=om, omega_abs0=om_abs0,
-                        omega_abs=om_abs)
+    om, om_abs = [], []
+    for j in range(nframes):
+        with span("swr.frozen.diag"):
+            om.append(disp.omega(ks[j]))
+            om_abs.append(abs_at(xs[j], ks[j]))
+    return FrozenResult(x=xs, k=ks, t=ts,
+                        omega=torch.stack(om) if nframes else empty,
+                        omega_abs0=om_abs0,
+                        omega_abs=torch.stack(om_abs) if nframes else empty)
 
 
 def raytrace_pv_snapshot(pv_path, frame: int, nx: int, Kd2: float,

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .grid import SpectralGrid
 from .interp import _cell_coords
 from .march_window import _DTYPE_CODE, _require_cuda
@@ -236,7 +237,10 @@ def march_rays_cuda_by(fields, x0, k0, grid: SpectralGrid, disp, dt: float,
         nodes = node_major_fields(fields)  # once per call
         x, k = x0, k0  # later segments march xN, kN in place
         for steps in segments:
-            perm = cell_order_cuda(x, grid) if ordered else None
+            perm = None
+            if ordered:
+                with span("swr.rays.order"):
+                    perm = cell_order_cuda(x, grid)
             err = entry(
                 nodes.data_ptr(), x.data_ptr(), k.data_ptr(),
                 xN.data_ptr(), kN.data_ptr(),

@@ -35,6 +35,13 @@ The spans, a layer each, at its boundary in the code:
                      autograd's thread; under remat it starts after the
                      step's recomputation (inside swr.step again), which
                      reading the march's saved tensors sets off
+  swr.frozen         one models/frozen.raytrace_frozen call, either route
+  swr.frozen.march   each ops/march_rays.march_rays call of its kernel
+                     route: the node-major copy, the orderings and K4
+  swr.frozen.diag    the initial Omega_abs and each frame's omega and
+                     Omega_abs
+  swr.rays.order     each ordering by cell (cell_order_cuda) in
+                     ops/march_rays.march_rays_cuda, whoever calls it
 
 The per-stage path (no fused march) has swr.step, swr.flow and swr.fields
 only. To see the layers of a real run, profile a chunk of it:
