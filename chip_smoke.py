@@ -14,7 +14,9 @@ member by member against a single-member launch, bit for bit), runs every
 path once on the card and
 once on the CPU at a small size and compares them (the per-stage packet path
 too), then drives the main paths at full width, each with the launch counts
-set to 0 just before it and read just after:
+set to 0 just before it and read just after (the wrappers count the
+launches that run when they are made; the chunks that replay a captured
+graph call none, and graph_path counts their kernels in a device trace):
 
   main_path      the two-layer coupled model at 512^2 with 2^20 wave
                  packets, rk23 with 2 substeps, uv windows, (ncells, K)
@@ -22,6 +24,12 @@ set to 0 just before it and read just after:
                  (march + transpose);
   main_path_qg1  the one-layer coupled model at the same size with the
                  one-kernel window build (march + build_windows);
+  graph_path     the two-layer chunk loop's two routes, the eager loop
+                 and one captured CUDA graph a save replayed, at 2^20 and
+                 2^16 packets: ms a flow step on the card and on the
+                 host's clock, the same bits, and a chunk's K1 and K2
+                 records in a device trace against the eager loop's
+                 wrapper counts (a replay calls no wrapper);
   frozen_path    2^20 packets marched 50 symplectic steps through a frozen
                  512^2 one-layer snapshot, ordered by cell, one launch per
                  segment of steps (march_rays); then a sweep of the segment
@@ -141,15 +149,17 @@ from swraytracing_torch.analysis.device_diag import (OmegaHistSpec,
                                                      omega_hist_counts)
 from swraytracing_torch.io import binio, runmeta
 from swraytracing_torch.models import (cgrid, examples, examples_1d, qg, qg2,
-                                       rays, rsw, sw1d)
+                                       rays, rsw, step_graph, sw1d)
 from swraytracing_torch.models.analytic import childress_soward
 from swraytracing_torch.models.coupled import (CoupledConfig,
                                                coupled_flow_packet_step,
                                                prepare_carry_windows,
                                                run_coupled_chunk,
+                                               run_lockstep_chunk,
                                                setup_coupled,
                                                window_threshold)
 from swraytracing_torch.models.coupled2 import (Coupled2Config,
+                                                coupled2_flow_packet_step,
                                                 run_coupled2_chunk,
                                                 setup_coupled2)
 from swraytracing_torch.models.dispersion import Dispersion
@@ -1159,9 +1169,13 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
     set up on the card, two warm-up chunks, n_chunks timed chunks, read
     the counts, check the state. `per_step` names the kernels the path
     launches once per flow step and, of those, the one that also prepares
-    the first carry's windows: (march, window kernel)."""
+    the first carry's windows: (march, window kernel). The first warm-up
+    chunk runs the flow's bootstrap by the eager loop; the second captures
+    the save interval as a CUDA graph, and every chunk from then on replays
+    it (models/step_graph.py)."""
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    routes0 = dict(step_graph.ROUTES)
     s, carry = setup(cfg, dtype=torch.float32)  # device=None: CUDA
     if carry.packet_x.device.type != "cuda" or s.march is None:
         raise AssertionError("the main path is not on the card / the march "
@@ -1186,14 +1200,25 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
     launches = read_launches()
 
     steps = n_chunks * cfg.packet_steps_per_save
-    # counted since just before setup: the march and the window kernel once
-    # per flow step, warm-up included, plus the one window launch that
-    # prepares the first carry's windows; no other kernel at all
-    all_steps = (2 + n_chunks) * cfg.packet_steps_per_save
+    per_save = cfg.packet_steps_per_save
+    all_steps = (2 + n_chunks) * per_save
+    took = {k: step_graph.ROUTES[k] - routes0[k] for k in routes0}
+    if took != {"eager": per_save, "captures": 1,
+                "graph": (1 + n_chunks) * per_save}:
+        raise AssertionError(f"{phase}: the chunk loop's routes {took}, "
+                             f"expected the first chunk eager and the rest "
+                             "replays of one captured graph")
+    # counted since just before setup, by the wrappers, which count the
+    # launches that run when they are made: the march and the window kernel
+    # once per eager flow step and once in the step run before the capture,
+    # plus the one window launch that prepares the first carry's windows;
+    # no other kernel at all. A replay calls no wrapper: graph_path counts
+    # its kernels with the profiler.
+    ran = took["eager"] + took["captures"]
     march, window = per_step
     expected = dict.fromkeys(WRAPPERS, 0)
-    expected[march] = all_steps
-    expected[window] = all_steps + 1
+    expected[march] = ran
+    expected[window] = ran + 1
     if launches != expected:
         raise AssertionError(f"{phase}: launch counts {launches}, expected "
                              f"{expected}")
@@ -1206,9 +1231,9 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
     # the rule gives
     rule = mw.march_route(s.march, carry.packet_x.dtype)
     routes = dict(WRAPPERS[march].launches_by_route)
-    if routes != {**dict.fromkeys(routes, 0), rule: all_steps}:
+    if routes != {**dict.fromkeys(routes, 0), rule: ran}:
         raise AssertionError(f"{phase}: the march launches took the routes "
-                             f"{routes}, expected {all_steps} {rule}")
+                             f"{routes}, expected {ran} {rule}")
     if any(mw.march_cuda.launches_by_route.values()):
         raise AssertionError(f"{phase}: the pre-gathered march was launched")
     for name, t in (("packet_x", carry.packet_x), ("packet_k", carry.packet_k),
@@ -1237,7 +1262,8 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
          margin=s.march.margin, K=s.march.K,
          fused_build=s.march.fused_build, dt=s.dt, U0=s.U0,
          timed_chunks=n_chunks, flow_steps=steps,
-         flow_steps_with_warm_up=all_steps, seconds=seconds,
+         flow_steps_with_warm_up=all_steps, chunk_loop_routes=took,
+         seconds=seconds,
          host_seconds=wall, flow_steps_per_s=steps / seconds,
          packet_steps_per_s=steps * cfg.n_packets / seconds,
          ms_per_flow_step=1e3 * seconds / steps, launches=launches,
@@ -1269,6 +1295,144 @@ def phase_main_path_qg1(n_chunks):
         setup_coupled, run_coupled_chunk,
         lambda qk, s: qg.max_speed(qk, s.grid, s.qg_params.Kd2),
         ("march", "build_windows"), n_chunks)
+
+
+# the lock-step's kernels by their names in a device trace
+STEP_KERNELS = ("march_ring_kernel", "march_kernel", "transpose_kernel",
+                "build_windows_kernel")
+
+
+def kernel_records(fn):
+    """fn() under torch.profiler: the device trace's records of each of
+    STEP_KERNELS, by name (CUPTI reports the kernels of a graph's replay
+    as it does eager launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(1 for n in names if re.search(rf"\b{k}\b", n))
+            for k in STEP_KERNELS}
+
+
+def phase_graph_path(dev):
+    """The chunk loop's two routes at the two-layer main path's shape and
+    at 2^16 packets: from one carry past the bootstrap, chunks of 25 steps
+    by the eager loop and by the graph route (one captured graph a save,
+    replayed; models/step_graph.py), timed with CUDA events and on the
+    host's clock around the chunk calls, and the two routes' carries and
+    saves held equal bit for bit. The eager loop's wrappers count K1 and
+    K2 once a step; a replay calls no wrapper, so the graph route's
+    kernels are counted in a device trace of one chunk, and must be the
+    eager chunk's, kernel by kernel."""
+    out = {}
+    for n_packets in (2 ** 20, 2 ** 16):
+        cfg = Coupled2Config(**dict(FULL, n_packets=n_packets,
+                                    packet_steps_per_save=25))
+        per_save = cfg.packet_steps_per_save
+        s, carry = setup_coupled2(cfg, dtype=torch.float32)
+        carry, _ = run_coupled2_chunk(carry, s, cfg, 1)  # bootstrap, eager
+        before = dict(step_graph.ROUTES)
+        # capture the graph here, outside the timed chunks
+        run_coupled2_chunk(carry, s, cfg, 1)
+
+        def eager(c):
+            return run_lockstep_chunk(
+                c, lambda x: coupled2_flow_packet_step(x, s, cfg), s.march,
+                per_save, 1, diag_fn=None,
+                window_min_np=window_threshold(cfg))
+
+        def graph(c):
+            return run_coupled2_chunk(c, s, cfg, 1)
+
+        timed = {}
+        for name, run in (("eager", eager), ("graph", graph),
+                          ("eager", eager), ("graph", graph)):
+            c = carry
+            counts0 = read_launches()
+            routes0 = dict(mw.march_gathered_cuda.launches_by_route)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            host = 0.0
+            start.record()
+            for _ in range(N_CHUNKS):
+                t0 = time.perf_counter()
+                c, saves = run(c)
+                host += time.perf_counter() - t0
+            end.record()
+            torch.cuda.synchronize()
+            steps = N_CHUNKS * per_save
+            rec = timed.setdefault(name, {"ms_per_step": [],
+                                          "enqueue_ms_per_step": []})
+            rec["ms_per_step"].append(start.elapsed_time(end) / steps)
+            rec["enqueue_ms_per_step"].append(1e3 * host / steps)
+            rec["launches"] = {k: n - counts0[k]
+                               for k, n in read_launches().items()}
+            rec["by_route"] = {
+                r: n - routes0[r]
+                for r, n in mw.march_gathered_cuda.launches_by_route.items()}
+            rec["answer"] = [v for _, v in step_graph._leaves(c)] + \
+                list(saves)
+        e, g = timed["eager"], timed["graph"]
+        for a, b in zip(g["answer"], e["answer"]):
+            same = (torch.equal(a, b) if isinstance(b, torch.Tensor)
+                    else type(a) is type(b) and a == b)
+            if not same:
+                raise AssertionError(f"graph_path at {n_packets} packets: "
+                                     "the routes' answers differ")
+        want = dict.fromkeys(WRAPPERS, 0)
+        want["march"] = want["transpose"] = N_CHUNKS * per_save
+        if e["launches"] != want or any(g["launches"].values()):
+            raise AssertionError(
+                f"graph_path: wrapper launch counts {e['launches']} by the "
+                f"eager loop (expected {want}), {g['launches']} by the "
+                "graph route (expected none)")
+        routes = {k: step_graph.ROUTES[k] - before[k]
+                  for k in step_graph.ROUTES}
+        if routes["captures"] != 1 or routes["graph"] != (
+                2 * N_CHUNKS + 1) * per_save:
+            raise AssertionError(f"graph_path: routes {routes}")
+        # one chunk of each route in a device trace: the graph's kernels
+        # are the eager chunk's wrapper launches, route by route
+        records = {name: kernel_records(lambda: run(carry))
+                   for name, run in (("eager", eager), ("graph", graph))}
+        by_route = {r: n // N_CHUNKS for r, n in e["by_route"].items()}
+        want_records = {
+            "march_ring_kernel": by_route["ring"],
+            "march_kernel": by_route["staged"] + by_route["direct"],
+            "transpose_kernel": e["launches"]["transpose"] // N_CHUNKS,
+            "build_windows_kernel": e["launches"]["build_windows"] // N_CHUNKS}
+        if records["graph"] != want_records or \
+                records["eager"] != want_records:
+            raise AssertionError(
+                f"graph_path: kernel records in one chunk's trace "
+                f"{records}, expected {want_records} from the eager loop's "
+                "wrapper counts")
+        row = {name: {k: rec[k] for k in ("ms_per_step",
+                                          "enqueue_ms_per_step")}
+               for name, rec in timed.items()}
+        speedup = (statistics.median(e["ms_per_step"])
+                   / statistics.median(g["ms_per_step"]))
+        emit("graph_path", n_packets=n_packets, steps_per_chunk=per_save,
+             chunks=N_CHUNKS, same_bits=True, routes=routes,
+             speedup=speedup, **row,
+             wrapper_launches_per_chunk={
+                 k: n // N_CHUNKS for k, n in e["launches"].items() if n},
+             march_launches_by_route_per_chunk=by_route,
+             kernel_records_per_chunk=records,
+             peak_memory_bytes=torch.cuda.max_memory_allocated())
+        out[n_packets] = row
+        del carry, c, saves, timed, e, g
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2020,17 +2184,19 @@ def run_driver(out, max_steps, resume=False):
 def phase_driver_path(tmp, main):
     """The two-layer driver in diagnostic mode, 150 flow steps (6 chunks)
     with a checkpoint every 2 chunks, launch counts set to 0 just before:
-    K1 once per flow step (on the route the rule gives the main path), K2
-    once per flow step plus the first
-    carry's windows plus one per window rebuild after a CFL recheck. Then
-    100 steps, resumed from their checkpoint to 150, against the
-    uninterrupted run."""
+    K1 once per flow step that runs eagerly and once per graph capture
+    (the step run before it; a replay calls no wrapper), on the route the
+    rule gives the main path, K2 as often plus the first carry's windows
+    plus one per window rebuild after a CFL recheck. Then 100 steps,
+    resumed from their checkpoint to 150, against the uninterrupted run."""
     n_p = DRIVER["Npackets"]
     steps = 150
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    routes0 = dict(step_graph.ROUTES)
     carry, rd, text, wall = run_driver(tmp / "path", steps)
     launches = read_launches()
+    took = {k: step_graph.ROUTES[k] - routes0[k] for k in routes0}
     routes = dict(mw.march_gathered_cuda.launches_by_route)
     gathers = mw.gather_packet_windows.calls
     peak = torch.cuda.max_memory_allocated()
@@ -2040,18 +2206,23 @@ def phase_driver_path(tmp, main):
                                 for m in metrics):
         raise AssertionError(f"driver_path metrics: {metrics}")
     rule = main["march_route"]
-    if launches["march"] != steps or routes != {**dict.fromkeys(routes, 0),
-                                                rule: steps}:
+    if took["eager"] + took["graph"] != steps or not took["graph"]:
+        raise AssertionError(f"driver_path: the chunk loop's routes {took} "
+                             f"for {steps} steps")
+    ran = took["eager"] + took["captures"]
+    if launches["march"] != ran or routes != {**dict.fromkeys(routes, 0),
+                                              rule: ran}:
         raise AssertionError(f"driver_path: march launches {launches}, "
-                             f"routes {routes}, expected {steps} {rule}")
+                             f"routes {routes}, expected {ran} {rule} "
+                             f"(chunk loop routes {took})")
     if gathers != 0:
         raise AssertionError(f"driver_path: gather_packet_windows was "
                              f"called {gathers} times")
-    rebuilds = launches["transpose"] - steps - 1
+    rebuilds = launches["transpose"] - ran - 1
     if not 0 <= rebuilds <= rechecks:
         raise AssertionError(f"driver_path: {launches['transpose']} "
-                             f"transposes for {steps} steps and {rechecks} "
-                             "CFL rechecks")
+                             f"transposes for {ran} steps run by wrapper "
+                             f"calls and {rechecks} CFL rechecks")
     others = {k: v for k, v in launches.items()
               if k not in ("march", "transpose") and v}
     if others:
@@ -2129,7 +2300,8 @@ def phase_driver_path(tmp, main):
          chunks=len(metrics), wall_seconds=wall, chunk_seconds=chunk_seconds,
          launches=launches, march_launches_by_route=routes,
          transpose_launches=launches["transpose"],
-         transpose_per_flow_step=steps, transpose_first_carry=1,
+         transpose_per_wrapper_step=ran, transpose_first_carry=1,
+         chunk_loop_routes=took,
          transpose_rebuilds_after_cfl_recheck=rebuilds,
          cfl_rechecks=rechecks, gather_packet_windows_calls=gathers,
          overflow=int(carry.overflow), omega_hist_frames=int(hist.shape[0]),
@@ -2584,6 +2756,7 @@ def phase_ensemble_path(tmp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    routes0 = dict(step_graph.ROUTES)
     seq_host = seq_event = 0.0
     seq_ov, dx, dk = 0, [], []
     for e, cfg in enumerate(cfgs):
@@ -2602,13 +2775,19 @@ def phase_ensemble_path(tmp):
         dk.append(float((c_e.packet_k - carry.packet_k[e]).abs().max()))
         del s_e, c_e
     launches_seq = read_launches()
+    seq_routes = {k: step_graph.ROUTES[k] - n for k, n in routes0.items()}
     peak_seq = torch.cuda.max_memory_allocated()
     if alone_ov != 0 or seq_ov != 0:
         raise AssertionError(f"overflow: ensemble {alone_ov}, sequential "
                              f"{seq_ov}")
-    if launches_seq["march"] != E * steps or \
-            launches_seq["transpose"] != E * (steps + 1):
-        raise AssertionError(f"sequential launches {launches_seq}")
+    # the wrappers count each member's eager steps and the step run before
+    # each capture; a replay calls none (models/step_graph.py)
+    seq_ran = seq_routes["eager"] + seq_routes["captures"]
+    if seq_routes["eager"] + seq_routes["graph"] != E * steps or \
+            launches_seq["march"] != seq_ran or \
+            launches_seq["transpose"] != seq_ran + E:
+        raise AssertionError(f"sequential launches {launches_seq}, chunk "
+                             f"loop routes {seq_routes}")
     if not all(np.isfinite(dx + dk)):
         raise AssertionError("the sequential packets are not finite")
 
@@ -2665,10 +2844,7 @@ def phase_ensemble_path(tmp):
                             "cuda_event_seconds": seq_event,
                             **rates(seq_host),
                             "launches": launches_seq,
-                            "launches_per_ensemble_step": {
-                                "march": launches_seq["march"] / steps,
-                                "transpose":
-                                    (launches_seq["transpose"] - E) / steps},
+                            "chunk_loop_routes": seq_routes,
                             "peak_memory_bytes": peak_seq,
                             "overflow": seq_ov},
              "ensemble_speedup_host": seq_host / alone_host,
@@ -3685,7 +3861,10 @@ def sharded_coupled(cfg, setup, run_chunk, mesh, n_chunks):
     and n_chunks timed by CUDA events and the host clock, each chunk
     ending in the overflow's MAX over the ranks. mesh=None: the same chunks
     unsharded, as main_path runs them. Returns (carry with this rank's
-    packets, timing)."""
+    packets, timing); the timing holds the chunk loop's steps by route
+    and its captures (run_lockstep_chunk.routes), which decide the
+    wrappers' launch counts (coupled_launches)."""
+    routes0 = dict(step_graph.ROUTES)
     s, carry = setup(cfg, dtype=torch.float32)   # device=None: the card
     if mesh is None:
         def chunk(c):
@@ -3714,14 +3893,18 @@ def sharded_coupled(cfg, setup, run_chunk, mesh, n_chunks):
                        ms_per_flow_step=1e3 * seconds / steps,
                        host_ms_per_flow_step=1e3 * wall / steps,
                        packet_steps_per_s_here=steps * n_local / seconds,
-                       overflow=int(carry.overflow))
+                       overflow=int(carry.overflow),
+                       chunk_loop_routes={k: step_graph.ROUTES[k] - n
+                                          for k, n in routes0.items()})
 
 
-def coupled_launches(march, window, chunks):
-    """What a coupled run of `chunks` chunks launches: the march once a
-    flow step, the window kernel once a flow step and once for the first
-    carry's windows."""
-    steps = chunks * FULL["packet_steps_per_save"]
+def coupled_launches(march, window, routes):
+    """What the wrappers count of a coupled run from one setup whose chunk
+    loop took `routes` (run_lockstep_chunk.routes, the run's own): the
+    march once a flow step run eagerly and once a graph capture (the step
+    run before it; a replay calls no wrapper), the window kernel as often
+    and once for the first carry's windows."""
+    steps = routes["eager"] + routes["captures"]
     return {march: steps, window: steps + 1}
 
 
@@ -3882,6 +4065,7 @@ def phase_multirank_path(dev, tmp, main, final_two, final_one):
     # the sharded runs are compared with the unsharded beside them.
     cfg2 = Coupled2Config(**FULL)
     turns = {"unsharded": [], "sharded": []}
+    sharded_routes = []
     _, timing = sharded_coupled(cfg2, setup_coupled2, run_coupled2_chunk,
                                 None, N_CHUNKS)
     turns["unsharded"].append(timing["ms_per_flow_step"])
@@ -3899,6 +4083,7 @@ def phase_multirank_path(dev, tmp, main, final_two, final_one):
                                             run_coupled2_chunk, mesh,
                                             N_CHUNKS)
             turns["sharded"].append(two_layer["ms_per_flow_step"])
+            sharded_routes.append(two_layer["chunk_loop_routes"])
             if two_layer["overflow"]:
                 raise AssertionError("multirank_path world 1: overflow")
         x1 = c2.packet_x.cpu().numpy()
@@ -3918,22 +4103,25 @@ def phase_multirank_path(dev, tmp, main, final_two, final_one):
         del c1
         mesh_sweep(tmp / "sweep_nccl", MULTIRANK_SWEEP_STEPS, mesh=mesh,
                    march_fused_build=True)
-        scaling_chunks = 4    # two warm-up calls and two timed
+        routes0 = dict(step_graph.ROUTES)
         points = measure_packet_scaling(
             lambda n: setup_coupled2(cfg2._replace(n_packets=n),
                                      dtype=torch.float32),
             lambda s: lambda c: run_coupled2_chunk(c, s, cfg2, 1),
             base_packets=cfg2.n_packets, world_sizes=(1,), iters=2,
             steps_per_call=cfg2.packet_steps_per_save)
+        scaling_routes = {k: step_graph.ROUTES[k] - n
+                          for k, n in routes0.items()}
     finally:
         dist.destroy_process_group()
     launches_nccl = expected_counts(launches_turns, read_launches())
     steps_sweep = MULTIRANK_SWEEP_STEPS
     expected = expected_counts(
-        coupled_launches("march", "transpose", 2 + N_CHUNKS),
-        coupled_launches("march", "transpose", 2 + N_CHUNKS),
-        coupled_launches("march", "build_windows", 2 + N_CHUNKS),
-        coupled_launches("march", "transpose", scaling_chunks),
+        *[coupled_launches("march", "transpose", r)
+          for r in sharded_routes],
+        coupled_launches("march", "build_windows",
+                         one_layer["chunk_loop_routes"]),
+        coupled_launches("march", "transpose", scaling_routes),
         {"march_batched": steps_sweep,
          "build_windows_batched": steps_sweep + 1})
     if launches_nccl != expected:
@@ -3954,11 +4142,12 @@ def phase_multirank_path(dev, tmp, main, final_two, final_one):
     ranks = [json.loads((tmp / f"rank{r}.json").read_text())
              for r in range(MULTIRANK_WORLD)]
     members_per_rank = len(ENSEMBLE_SWEEP) // MULTIRANK_WORLD
-    expected_rank = expected_counts(
-        coupled_launches("march", "transpose", 2 + N_CHUNKS),
-        *[{"march_batched": steps_sweep,
-           "transpose_batched": steps_sweep + 1}] * len(MESH_SWEEPS))
     for r, got in enumerate(ranks):
+        expected_rank = expected_counts(
+            coupled_launches("march", "transpose",
+                             got["main"]["chunk_loop_routes"]),
+            *[{"march_batched": steps_sweep,
+               "transpose_batched": steps_sweep + 1}] * len(MESH_SWEEPS))
         merged = expected_counts(got["launches_main"], got["launches_sweep"])
         if merged != expected_rank or got["main"]["overflow"]:
             raise AssertionError(f"multirank_path rank {r}: launch counts "
@@ -4124,6 +4313,7 @@ def main():
     final_one = (one[2].packet_x.cpu().numpy(), one[2].packet_k.cpu().numpy())
     rows_one, bounds_one = phase_kernels_qg1(*one)
     del one
+    phase_graph_path(dev)
     rows_rays, bounds_rays, launches_rays = phase_frozen_path(dev)
     rows += rows_one + rows_rays
     bounds.update(bounds_one, **bounds_rays)

@@ -88,7 +88,11 @@ def omega_hist_counts(pk: torch.Tensor, spec: OmegaHistSpec,
 
     def scalar(value):
         """A host scale as a 0-dim tensor, a device scale (E,) as (E, 1)
-        beside its members' samples."""
+        beside its members' samples. A host scale is filled in on the
+        device: a copy from the host would wait for the stream's queued
+        work first."""
+        if isinstance(value, (int, float)):
+            return pk.new_full((), value)
         t = torch.as_tensor(value, dtype=pk.dtype, device=pk.device)
         return t.reshape(*t.shape, 1) if t.dim() else t
 

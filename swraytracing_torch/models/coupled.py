@@ -21,9 +21,12 @@ chunk loop (shared with the two-layer model, coupled2.py), and the
 one-layer model's entry points (`CoupledConfig`, `setup_coupled`,
 `coupled_flow_packet_step`, `run_coupled_chunk`).
 
-Everything runs eagerly: a chunk is a Python loop over flow steps, each a
-fixed sequence of device launches with no host synchronisation (time and
-step count live on the host).
+A chunk is a Python loop over flow steps, each a fixed sequence of device
+launches with no host synchronisation (time and step count live on the
+host). On the card, once the flow's bootstrap is over and the packets are
+released, the chunk loop replays each save interval's steps as one
+captured CUDA graph instead (step_graph.py; run_lockstep_chunk), bit for
+bit the same.
 
 The lock-step and the carry also take an ensemble's members (a leading
 member axis E on every tensor of the carry, `t` and `step` host arrays;
@@ -52,12 +55,14 @@ from .dispersion import Dispersion
 from .fields import BlendedFlow, flow_from_qk
 from .qg import (QGParams, qg_init, qg_step, initial_q_ring,
                  inertial_ring_forcing, max_speed)
+from . import step_graph
+from .step_graph import ModelStep
 
 __all__ = ["CoupledConfig", "CoupledSetup", "CoupledCarry", "setup_coupled",
            "coupled_flow_packet_step", "run_coupled_chunk",
            "ring_packet_ics", "build_march_spec", "window_threshold",
            "march_n_fields", "prepare_carry_windows", "lockstep_step",
-           "run_lockstep_chunk"]
+           "run_lockstep_chunk", "ModelStep"]
 
 class CoupledConfig(NamedTuple):
     """Mirrors the qgsw_raytrace positional signature
@@ -260,6 +265,8 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
 
     The step runs inside the span swr.step (utils/profiling.span), its
     flow step inside swr.flow and the velocity grids inside swr.fields.
+    A replay of the chunk loop's graph route (step_graph.py) runs none of
+    them: they run in the pass that captures the graph only.
     """
     with span("swr.step"):
         return _lockstep_step(carry, flow_step_fn, fields_fn, grid, disp, dt,
@@ -466,8 +473,38 @@ def run_lockstep_chunk(carry: CoupledCarry, step_fn, march,
     torch.utils.checkpoint: the backward keeps each step's input carry
     only and recomputes the step from it (the JAX package's
     jax.checkpoint per lock-step). `t` and `step` are host scalars, so
-    the recomputation repeats the forward's arithmetic exactly."""
+    the recomputation repeats the forward's arithmetic exactly.
+
+    Two routes, by what the chunk can see in its input (the rule is
+    step_graph.refusals): where the carry lies on a CUDA device and is a
+    single run's, the fused march is engaged, remat is off, autograd would
+    record nothing, step_fn is a ModelStep (as run_coupled_chunk and
+    run_coupled2_chunk pass it), the flow is past its bootstrap (step >= 2)
+    and the first step is released, each save interval's steps are one
+    CUDA graph, captured once and replayed (step_graph.py: the same
+    launches, bit for bit; the returned carry and saves are fresh tensors
+    and the input is not modified). Any other chunk runs the eager loop.
+    `run_lockstep_chunk.routes` counts the steps by route ("graph",
+    "eager") and the graphs captured ("captures")."""
     carry = prepare_carry_windows(carry, remat, march, window_min_np)
+    n_steps = n_saves * steps_per_save
+    if not step_graph.refusals(carry, step_fn, march, remat, n_steps):
+        carry, saves, ts = step_graph.run_chunk(carry, step_fn,
+                                                steps_per_save, n_saves,
+                                                diag_fn)
+    else:
+        step_graph.ROUTES["eager"] += n_steps
+        carry, saves, ts = _eager_chunk(carry, step_fn, steps_per_save,
+                                        n_saves, remat, diag_fn)
+    stacked = tuple(torch.stack(col) for col in zip(*saves))
+    return carry, (*stacked, torch.tensor(ts, dtype=torch.float64))
+
+
+run_lockstep_chunk.routes = step_graph.ROUTES
+
+
+def _eager_chunk(carry, step_fn, steps_per_save, n_saves, remat, diag_fn):
+    """run_lockstep_chunk's eager loop: (carry, saves, save times)."""
     if remat:
         plain_step = step_fn
 
@@ -484,8 +521,7 @@ def run_lockstep_chunk(carry: CoupledCarry, step_fn, march,
             saves.append((diag_fn(carry),))
         else:
             saves.append((carry.packet_x, carry.packet_k))
-    stacked = tuple(torch.stack(col) for col in zip(*saves))
-    return carry, (*stacked, torch.tensor(ts, dtype=torch.float64))
+    return carry, saves, ts
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +614,6 @@ def run_coupled_chunk(carry: CoupledCarry, s: CoupledSetup,
     torch.autograd.grad; for a complex leaf such as `qk` PyTorch's
     gradient is the complex conjugate of jax.grad's."""
     return run_lockstep_chunk(
-        carry, lambda c: coupled_flow_packet_step(c, s, cfg), s.march,
+        carry, ModelStep(coupled_flow_packet_step, s, cfg), s.march,
         cfg.packet_steps_per_save, n_saves, remat, diag_fn,
         window_threshold(cfg))

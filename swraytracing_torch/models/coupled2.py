@@ -12,9 +12,11 @@ same safety factor the reference applies on rebuild (CFL_fraction/2).
 The shear-driven flow equilibrates, so a fixed dt at half-CFL matches
 the reference's post-adaptation dt.
 
-Everything runs eagerly: a chunk is a Python loop over flow steps, each a
-fixed sequence of device launches with no host synchronisation (time and
-step count live on the host).
+A chunk is a Python loop over flow steps, each a fixed sequence of device
+launches with no host synchronisation (time and step count live on the
+host), or on the card, once the AB3 bootstrap is over and the packets are
+released, one captured CUDA graph a save interval, replayed
+(models/step_graph.py, chosen in coupled.run_lockstep_chunk).
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ import torch
 
 from ..ops.grid import SpectralGrid, resolve_device
 from .dispersion import Dispersion
-from .coupled import (CoupledCarry, lockstep_step, ring_packet_ics,
-                      run_lockstep_chunk, build_march_spec, march_n_fields,
-                      window_threshold)
+from .coupled import (CoupledCarry, ModelStep, lockstep_step,
+                      ring_packet_ics, run_lockstep_chunk, build_march_spec,
+                      march_n_fields, window_threshold)
 from .qg2 import (QG2Params, QG2Operators, qg2_init, qg2_step,
                   build_operators, initial_q2_ring, top_layer_flow,
                   max_speed2)
@@ -175,6 +177,6 @@ def run_coupled2_chunk(carry: CoupledCarry, s: Coupled2Setup,
     remat=True rematerialises each lock-step in reverse-mode
     differentiation (see run_coupled_chunk)."""
     return run_lockstep_chunk(
-        carry, lambda c: coupled2_flow_packet_step(c, s, cfg), s.march,
+        carry, ModelStep(coupled2_flow_packet_step, s, cfg), s.march,
         cfg.packet_steps_per_save, n_saves, remat, diag_fn,
         window_threshold(cfg))

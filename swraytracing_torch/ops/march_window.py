@@ -731,6 +731,20 @@ def _march_entry(lib, route, dtype, batched=False):
     return name, getattr(lib, name)
 
 
+def _count(wrapper, **by):
+    """Count a launch of `wrapper`'s kernel in `wrapper.launches` and, for
+    each counter=key in `by`, in `wrapper.<counter>[key]`. Not where the
+    current stream is capturing a CUDA graph: there the launch is recorded
+    into the graph and runs only when the graph is replayed, which calls
+    no wrapper (models/step_graph.py). So the counters count the launches
+    that run when they are made; a profiler sees a replay's kernels."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    wrapper.launches += 1
+    for counter, key in by.items():
+        getattr(wrapper, counter)[key] += 1
+
+
 def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
                   sub_dt, spec: MarchSpec, route, consumers=None):
     """Launch the march kernel for `wrapper` (march_cuda or
@@ -760,8 +774,7 @@ def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
             spec.nf, _STEPPERS.index(spec.stepper), threads,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, name)
-    wrapper.launches += 1
-    wrapper.launches_by_route[route] += 1
+    _count(wrapper, launches_by_route=route)
     return out, ov
 
 
@@ -965,8 +978,7 @@ def march_gathered_backward_cuda(win1, win2, xk, oi, oj, sub_dt, ct_xk,
             spec.Cg ** 2, spec.margin, spec.n_substeps, spec.nf, int(stage),
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, entry_name)
-    march_gathered_backward_cuda.launches += 1
-    march_gathered_backward_cuda.launches_by_route[route] += 1
+    _count(march_gathered_backward_cuda, launches_by_route=route)
     return ct_in, cw1, cw2
 
 
@@ -1006,8 +1018,7 @@ def transpose_cuda(W: torch.Tensor, direction: str = "forward"
             _DTYPE_CODE[W.dtype], W.data_ptr(), out.data_ptr(), A, B,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "swr_transpose")
-    transpose_cuda.launches += 1
-    transpose_cuda.launches_by_direction[direction] += 1
+    _count(transpose_cuda, launches_by_direction=direction)
     return out
 
 
@@ -1045,7 +1056,7 @@ def build_windows_cuda(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
             spec.SW, spec.order + spec.margin,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "swr_build_windows")
-    build_windows_cuda.launches += 1
+    _count(build_windows_cuda)
     return out
 
 
@@ -1302,8 +1313,7 @@ def march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
             _STEPPERS.index(spec.stepper), threads,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, entry_name)
-    march_gathered_batched_cuda.launches += 1
-    march_gathered_batched_cuda.launches_by_route[route] += 1
+    _count(march_gathered_batched_cuda, launches_by_route=route)
     return out, ov
 
 
@@ -1356,7 +1366,7 @@ def transpose_batched_cuda(W: torch.Tensor) -> torch.Tensor:
             _DTYPE_CODE[W.dtype], W.data_ptr(), out.data_ptr(), E, A, B,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "swr_transpose_batched")
-    transpose_batched_cuda.launches += 1
+    _count(transpose_batched_cuda)
     return out
 
 
@@ -1413,7 +1423,7 @@ def build_windows_batched_cuda(F: torch.Tensor,
             F.stride(0), spec.nf, nx, ny, spec.SW, spec.order + spec.margin,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "swr_build_windows_batched")
-    build_windows_batched_cuda.launches += 1
+    _count(build_windows_batched_cuda)
     return out
 
 

@@ -42,9 +42,13 @@ The spans, a layer each, at its boundary in the code:
                      Omega_abs
   swr.rays.order     each ordering by cell (cell_order_cuda) in
                      ops/march_rays.march_rays_cuda, whoever calls it
+  swr.graph          each replay of a save interval's captured lock-steps
+                     (models/step_graph.py, the chunk loop's graph route)
 
 The per-stage path (no fused march) has swr.step, swr.flow and swr.fields
-only. To see the layers of a real run, profile a chunk of it:
+only. On the chunk loop's graph route a replay runs no Python of the step:
+swr.step, swr.flow, swr.fields, swr.windows and swr.march run in the pass
+that captures the graph only, and each replay is one swr.graph. To see the layers of a real run, profile a chunk of it:
 
     with profiling.trace("prof"):
         carry, rows = run_coupled2_chunk(carry, s, cfg, 4)
