@@ -5,11 +5,11 @@
 builds the CUDA kernels of swraytracing_torch from the sources in this
 checkout (march, transpose, build_windows, march_rays, and the first three
 batched over the members of an ensemble, one launch for all), holds each
-against its plain PyTorch version on the card (the march through both of its
-entries: rows read by cell from the window arrays, and pre-gathered rows,
-and by each of its three routes, which give the same bits: each warp's rows
-staged in shared memory, a ring of slots that producer warps fill while
-consumer warps march, and rows read per thread; each batched kernel also
+against its plain PyTorch version on the card (the march, which reads its
+rows by cell from the (ncells, K) window arrays, by each of its three
+routes, which give the same bits: each warp's rows staged in shared memory,
+a ring of slots that producer warps fill while consumer warps march, and
+rows read per thread; each batched kernel also
 member by member against a single-member launch, bit for bit), runs every
 path once on the card and
 once on the CPU at a small size and compares them (the per-stage packet path
@@ -114,10 +114,7 @@ bytes and operations, the plain version's time, a library call's time
 where there is one, its launches on the main paths, its error against the
 plain version; the march rows also hold `ms_by_route`, the kernel by each of
 its routes in the same run, and `march_batched` a stepper split by route
-(2, 6 and 8 stage evaluations on the same rows); the march row holds
-`replaced_ms`, the time of the
-stacked copy, the row gather and the pre-gathered march that the gathered
-march took the place of, measured in the same run; the march_rays row the
+(2, 6 and 8 stage evaluations on the same rows); the march_rays row the
 unordered single launch of the same kernel as `replaced_ms` and the time of
 its orderings and copies as `ordering_ms`), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}. The `kernel_bounds` line before them
@@ -181,6 +178,7 @@ from swraytracing_torch.parallel import multihost
 from swraytracing_torch.parallel import sharding as shd
 from swraytracing_torch.parallel.scaling import measure_packet_scaling
 from swraytracing_torch.utils import profiling
+from portbench.counts import march as march_counts
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 / float64 rates outside the tensor cores.
@@ -213,14 +211,11 @@ SOURCES.update({f"{name}_batched": SOURCES[name]
 MARCH_SOURCES = {"staged": SOURCES["march"], "direct": SOURCES["march"],
                  "ring": "swraytracing_torch/kernels/csrc/march_ring.cuh"}
 # "march" is the entry the coupled paths launch (rows read by cell);
-# "march_pregathered" is the same kernel behind march_cuda, which no main
-# path launches (it has no row of its own in the `kernels` line);
 # "cell_order" is the counting sort of march_rays.cu that march_rays_cuda
 # runs before each of its launches (counted in the march_rays row);
 # "*_batched" are the kernels of an ensemble's members, one launch for all.
 WRAPPERS = {
     "march": mw.march_gathered_cuda,
-    "march_pregathered": mw.march_cuda,
     "transpose": mw.transpose_cuda,
     "build_windows": mw.build_windows_cuda,
     "march_rays": mr.march_rays_cuda,
@@ -296,8 +291,7 @@ def cuda_ms_run(fn, launches=20, reps=5):
     return cuda_ms(lambda: [fn() for _ in range(launches)], reps) / launches
 
 
-MARCH_WRAPPERS = (mw.march_gathered_cuda, mw.march_cuda,
-                  mw.march_gathered_batched_cuda)
+MARCH_WRAPPERS = (mw.march_gathered_cuda, mw.march_gathered_batched_cuda)
 
 
 def reset_launches():
@@ -308,7 +302,6 @@ def reset_launches():
     for wrapper in MARCH_WRAPPERS:
         wrapper.launches_by_route = dict.fromkeys(
             wrapper.launches_by_route, 0)
-    mw.gather_packet_windows.calls = 0
 
 
 def read_launches():
@@ -364,20 +357,6 @@ def smooth_fields(rng, n, nx):
     return np.stack([smooth() for _ in range(n)])
 
 
-def march_inputs(spec, F1, F2, x, k):
-    """(pw1, pw2, xk, oi, oj) through the port's own build and gather."""
-    W1 = mw.build_gather_windows(F1, spec)
-    W2 = mw.build_gather_windows(F2, spec)
-    oi, oj = mw.packet_cells(x[0], x[1], spec)
-    xk = torch.cat([x, k], dim=0)
-    if spec.combined_gather:
-        Wc = torch.cat([W1, W2], dim=-1 if spec.tiles_transposed else 0)
-        return (mw.gather_packet_windows(Wc, oi, oj, spec),
-                xk.new_zeros((1, 1)), xk, oi, oj)
-    return (mw.gather_packet_windows(W1, oi, oj, spec),
-            mw.gather_packet_windows(W2, oi, oj, spec), xk, oi, oj)
-
-
 def gathered_inputs(spec, F1, F2, x, k):
     """(win1, win2, xk, oi, oj): the two cell-window arrays themselves."""
     oi, oj = mw.packet_cells(x[0], x[1], spec)
@@ -399,7 +378,8 @@ def route_taken(fn, wrapper=mw.march_gathered_cuda):
 
 
 def compare_march(inputs, sub_dt, spec, rtol, atol, label,
-                  kernel=mw.march_cuda, plain=mw.march_reference):
+                  kernel=mw.march_gathered_cuda,
+                  plain=mw.march_gathered_reference):
     """A march entry's kernel against its plain version on the same CUDA
     tensors. Returns (max abs error, largest error as a share of the
     tolerance, largest overflow, the kernel's output, the route its launch
@@ -453,29 +433,17 @@ def march_by_route(win1, win2, xk, oi, oj, sub_dt, spec, route,
 
 def check_gathered_march(dtype, rtol, atol, F1, F2, x, k, xr, kr, spec_for,
                          dx):
-    """The march with the gather inside the kernel, against its plain
-    version, against the pre-gathered entry on index_select-ed rows (bit
-    for bit), and one route against the other (bit for bit)."""
+    """The march, which reads its rows by cell, against its plain version,
+    and one route against the other (bit for bit)."""
     worst_err, worst_share, cases, routes = 0.0, 0.0, 0, {}
 
     def one(spec, xx, kk, sub_dt, label, overflow_wanted=False, rtol=rtol):
         nonlocal worst_err, worst_share, cases
         inputs = gathered_inputs(spec, F1, F2, xx, kk)
         err, share, ovmax, got, route = compare_march(
-            inputs, sub_dt, spec, rtol, atol, label,
-            kernel=mw.march_gathered_cuda,
-            plain=mw.march_gathered_reference)
+            inputs, sub_dt, spec, rtol, atol, label)
         if (ovmax > 0) != overflow_wanted:
             raise AssertionError(f"{label}: overflow {ovmax}")
-        win1, win2, xk, oi, oj = inputs
-        split = spec._replace(combined_gather=False)
-        pre, ov_pre = mw.march_cuda(
-            mw.gather_packet_windows(win1, oi, oj, split),
-            mw.gather_packet_windows(win2, oi, oj, split), xk, oi, oj,
-            sub_dt, split)
-        if not torch.equal(pre, got):
-            raise AssertionError(f"{label}: the gathered kernel differs from "
-                                 "the pre-gathered kernel on gathered rows")
         for other in ("staged", "direct", "ring"):
             if other == route or (other == "staged"
                                   and not fits_staged(spec, dtype)) or (
@@ -494,17 +462,15 @@ def check_gathered_march(dtype, rtol, atol, F1, F2, x, k, xr, kr, spec_for,
     for stepper in ("rk23", "rk4", "symplectic"):
         for nf in (2, 6):
             for margin in (1, 2):
-                spec = spec_for(stepper=stepper, nf=nf, margin=margin,
-                                tiles_transposed=True, combined_gather=True)
+                spec = spec_for(stepper=stepper, nf=nf, margin=margin)
                 one(spec, x, k, 0.1 * margin * dx,
                     f"gathered {stepper} nf={nf} m={margin}")
     # a packet count that no warp or block divides
     for nf, margin in ((2, 1), (6, 2)):
-        spec = spec_for(stepper="rk23", nf=nf, margin=margin,
-                        tiles_transposed=True)
+        spec = spec_for(stepper="rk23", nf=nf, margin=margin)
         one(spec, xr, kr, 0.1 * margin * dx,
             f"gathered ragged Np={xr.shape[1]} nf={nf} m={margin}")
-    spec = spec_for(stepper="rk23", nf=2, margin=1, tiles_transposed=True)
+    spec = spec_for(stepper="rk23", nf=2, margin=1)
     # frozen packets: xk comes back bit for bit
     inputs, got = one(spec, xr, kr, 0.0, "gathered sub_dt=0")
     if not torch.equal(got, inputs[2]):
@@ -516,7 +482,6 @@ def check_gathered_march(dtype, rtol, atol, F1, F2, x, k, xr, kr, spec_for,
             overflow_wanted=True, rtol=1e-12)
     return {"cases": cases, "max_abs_err": worst_err, "rtol": rtol,
             "atol": atol, "worst_share_of_tolerance": worst_share,
-            "equals_pregathered_kernel_bit_for_bit": True,
             "routes_equal_bit_for_bit": True, "routes": routes}
 
 
@@ -544,7 +509,7 @@ def check_build_windows(dev):
                     spec = mw.MarchSpec(
                         nx=nx, ny=ny, dx=1.0, dy=1.0, f=3.0, Cg=1.0, nf=nf,
                         grad_from_interp=nf == 2, margin=margin,
-                        tiles_transposed=True, fused_build=True)
+                        fused_build=True)
                     got = mw.build_windows_cuda(F, spec)
                     torch.cuda.synchronize()
                     label = f"build_windows {dtype} {nx}x{ny} nf={nf} m={margin}"
@@ -775,7 +740,7 @@ def check_batched_kernels(dev):
                             device=dev)
         spec = mw.MarchSpec(nx=nx, ny=nx, dx=dx, dy=dx, f=3.0, Cg=1.0,
                             n_substeps=2, nf=2, grad_from_interp=True,
-                            margin=1, tiles_transposed=True)
+                            margin=1)
         label = f"batched {dtype} E={E}"
         wins = []
         for F_ in (F[:, :2].contiguous(), F[:, 2:].contiguous()):
@@ -888,7 +853,6 @@ def phase_kernels_vs_plain(dev):
     xh[:, 1] = [L, -1e-18]
     xh[:, 2] = [np.nextafter(dx, 0), np.nextafter(dx, 1)]
     # the same with a count that no warp or block divides, as K4's cases
-    n_r = n_p + 37
     xrh = np.concatenate([xh, rng.uniform(0.0, L, (2, 37))], axis=1)
     krh = np.concatenate([kh, rng.normal(0.0, 3.0, (2, 37))], axis=1)
 
@@ -897,7 +861,6 @@ def phase_kernels_vs_plain(dev):
                               (torch.float32, F32_RTOL, F32_ATOL)):
         F1, F2, x, k, xr, kr = (torch.as_tensor(a, dtype=dtype, device=dev)
                                 for a in (F1h, F2h, xh, kh, xrh, krh))
-        worst_err, worst_share, cases, routes = 0.0, 0.0, 0, {}
 
         def spec_for(**kw):
             nf = kw.pop("nf", 6)
@@ -905,69 +868,8 @@ def phase_kernels_vs_plain(dev):
                                 n_substeps=2, nf=nf,
                                 grad_from_interp=nf == 2, **kw)
 
-        for stepper in ("rk23", "rk4", "symplectic"):
-            for nf in (2, 6):
-                for combined in (True, False):
-                    for transposed in (True, False):
-                        for margin in (1, 2):
-                            spec = spec_for(
-                                stepper=stepper, nf=nf, margin=margin,
-                                combined_gather=combined,
-                                tiles_transposed=transposed)
-                            label = (f"{dtype} {stepper} nf={nf} "
-                                     f"combined={combined} "
-                                     f"transposed={transposed} m={margin}")
-                            err, share, ovmax, _, route = compare_march(
-                                march_inputs(spec, F1, F2, x, k),
-                                0.1 * margin * dx, spec, rtol, atol, label)
-                            if ovmax != 0:
-                                raise AssertionError(
-                                    f"{label}: unexpected overflow {ovmax}")
-                            routes[label] = route
-                            worst_err = max(worst_err, err)
-                            worst_share = max(worst_share, share)
-                            cases += 1
-        # ragged packet count, row layout (combined) and (K, Np) layout
-        for transposed in (True, False):
-            spec = spec_for(stepper="rk23", nf=2, margin=1,
-                            combined_gather=transposed,
-                            tiles_transposed=transposed)
-            label = f"{dtype} ragged Np={n_r} transposed={transposed}"
-            err, share, ovmax, _, route = compare_march(
-                march_inputs(spec, F1, F2, xr, kr), 0.1 * dx, spec, rtol,
-                atol, label)
-            if ovmax != 0:
-                raise AssertionError(f"{label}: unexpected overflow {ovmax}")
-            routes[label] = route
-            worst_err, worst_share = max(worst_err, err), max(worst_share,
-                                                              share)
-            cases += 1
-        spec = spec_for(stepper="rk23", nf=2, margin=1, combined_gather=True,
-                        tiles_transposed=True)
-        inputs = march_inputs(spec, F1, F2, x, k)
-        # frozen packets: xk comes back bit for bit
-        got, ov = mw.march_cuda(*inputs, 0.0, spec)
-        if not (torch.equal(got, inputs[2]) and int(ov.max()) == 0):
-            raise AssertionError(f"{dtype}: sub_dt=0 is not the identity")
-        cases += 1
-        extra = {}
-        if dtype == torch.float64:
-            # a substep long enough to leave the margin: overflow > 0,
-            # equal on both sides (the MAX over stages and substeps)
-            err, share, ovmax, _, _ = compare_march(
-                inputs, 5.0 * dx, spec, 1e-12, F64_ATOL,
-                "float64 forced overflow")
-            if ovmax <= 0:
-                raise AssertionError("forced-overflow case did not overflow")
-            extra = {"forced_overflow_max": ovmax,
-                     "forced_overflow_max_abs_err": err}
-            cases += 1
-        report[str(dtype)] = {
-            "cases": cases, "max_abs_err": worst_err, "rtol": rtol,
-            "atol": atol, "worst_share_of_tolerance": worst_share, **extra,
-            "routes": routes,
-            "gathered": check_gathered_march(dtype, rtol, atol, F1, F2, x, k,
-                                             xr, kr, spec_for, dx)}
+        report[str(dtype)] = check_gathered_march(
+            dtype, rtol, atol, F1, F2, x, k, xr, kr, spec_for, dx)
 
     # transpose: exact equality
     shapes = [(128, 262144), (262144, 128), (130, 1000)]
@@ -1222,11 +1124,6 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
     if launches != expected:
         raise AssertionError(f"{phase}: launch counts {launches}, expected "
                              f"{expected}")
-    # the march reads its rows by cell: nothing gathers them beforehand
-    gathers = mw.gather_packet_windows.calls
-    if gathers != 0:
-        raise AssertionError(f"{phase}: gather_packet_windows was called "
-                             f"{gathers} times")
     # by the counts the launches themselves left: every one on the route
     # the rule gives
     rule = mw.march_route(s.march, carry.packet_x.dtype)
@@ -1234,8 +1131,6 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
     if routes != {**dict.fromkeys(routes, 0), rule: ran}:
         raise AssertionError(f"{phase}: the march launches took the routes "
                              f"{routes}, expected {ran} {rule}")
-    if any(mw.march_cuda.launches_by_route.values()):
-        raise AssertionError(f"{phase}: the pre-gathered march was launched")
     for name, t in (("packet_x", carry.packet_x), ("packet_k", carry.packet_k),
                     ("prev_fields", carry.prev_fields),
                     ("qk", torch.view_as_real(carry.flow_state.qk))):
@@ -1268,7 +1163,7 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
          packet_steps_per_s=steps * cfg.n_packets / seconds,
          ms_per_flow_step=1e3 * seconds / steps, launches=launches,
          march_launches_by_route=routes, march_block=s.march.block,
-         gather_packet_windows_calls=gathers, overflow=overflow,
+         overflow=overflow,
          max_packet_displacement=moved,
          omega_over_f_start=[om0_mean, om0_std],
          omega_over_f_end=[float(om1.mean()), float(om1.std())],
@@ -1439,28 +1334,6 @@ def phase_graph_path(dev):
 # the kernels at the main paths' shapes
 # ---------------------------------------------------------------------------
 
-def march_flops_per_packet(spec):
-    """Floating-point adds and multiplies of the plain algorithm for one
-    packet over one flow step (what march_reference does on the live 6x6
-    stencil; bookkeeping on integers is not counted)."""
-    grad = spec.grad_from_interp
-    weights = 2 * (6 + 6 * 5)                      # a = fr - o; 6 products
-    if grad:
-        weights += 2 * 6 * (5 * 3 + 4 + 1)         # derivative weights
-    stencil = spec.nf * 36
-    contraction = stencil * 3 + stencil * 2        # blend; y contraction
-    contraction += spec.nf * 6 * 2                 # x contraction
-    if grad:
-        contraction += stencil * 2 + spec.nf * 6 * 4 + 4
-    cell = 8                                       # scale, mod, floor, frac
-    one_eval = weights + contraction + cell
-    rhs = one_eval + 20
-    per_substep = {"rk23": 3 * rhs + 4 * 2 * 3 + 4 * 7,
-                   "rk4": 4 * rhs + 4 * 2 * 3 + 4 * 7,
-                   "symplectic": one_eval + 40}[spec.stepper]
-    return spec.n_substeps * per_substep
-
-
 def march_rays_flops_per_packet_step(order):
     """Floating-point operations of the plain algorithm for one packet over
     one Strang step of march_rays_reference (integer index work is not
@@ -1523,49 +1396,23 @@ def time_parts(parts, reps=15):
 def march_at_main_shapes(spec, win1, win2, x, k, sub_dt):
     """K1 as the coupled paths launch it (rows read by cell from the two
     window arrays) on a main path's tensors: held against its plain
-    version, timed, and beside it what it took the place of in a flow
-    step: the stacked copy of the two window arrays, the row gather, and
-    the pre-gathered march on the gathered rows (same bits). Returns
-    (args, (ms per launch in a run, ms of a single launch), max abs err,
-    replaced, the route the timed launches took)."""
-    n_p = x.shape[1]
+    version and timed. Returns (args, (ms per launch in a run, ms of a
+    single launch), max abs err, the route the timed launches took)."""
     oi, oj = mw.packet_cells(x[0], x[1], spec)
     args = (win1, win2, torch.cat([x, k], dim=0), oi, oj, sub_dt, spec)
     if (tuple(win1.shape) != (spec.nx * spec.ny, spec.K)
             or win2.shape != win1.shape):
         raise AssertionError(f"unexpected window arrays {tuple(win1.shape)} "
                              f"{tuple(win2.shape)}")
-    err, _, ovmax, got, _ = compare_march(
+    err, _, ovmax, _, _ = compare_march(
         args[:5], sub_dt, spec, F32_RTOL, F32_ATOL,
-        "march at the main shapes", kernel=mw.march_gathered_cuda,
-        plain=mw.march_gathered_reference)
+        "march at the main shapes")
     if ovmax != 0:
         raise AssertionError(f"march overflow {ovmax} at the main shapes")
-
-    combined = spec._replace(combined_gather=True)
-    winc = torch.cat([win1, win2], dim=-1)
-    pwc = mw.gather_packet_windows(winc, oi, oj, combined)
-    if tuple(pwc.shape) != (n_p, 2 * spec.K):
-        raise AssertionError(f"unexpected window rows {tuple(pwc.shape)}")
-    dummy = pwc.new_zeros((1, 1))
-    old, _ = mw.march_cuda(pwc, dummy, *args[2:5], sub_dt, combined)
-    if not torch.equal(old, got):
-        raise AssertionError("the gathered march differs from the "
-                             "pre-gathered march at the main shapes")
-    del old, got
-    replaced = time_parts({
-        "cat_windows": lambda: torch.cat([win1, win2], dim=-1),
-        "gather_packet_windows": lambda: mw.gather_packet_windows(
-            winc, oi, oj, combined),
-        "march_cuda": lambda: mw.march_cuda(pwc, dummy, *args[2:5], sub_dt,
-                                            combined),
-    })
-    replaced["replaced_ms"] = sum(replaced.values())
-    del winc, pwc
     (ms, single_ms), route = route_taken(
         lambda: (cuda_ms_run(lambda: mw.march_gathered_cuda(*args)),
                  cuda_ms(lambda: mw.march_gathered_cuda(*args), 25)))
-    return args, (ms, single_ms), err, replaced, route
+    return args, (ms, single_ms), err, route
 
 
 def phase_march_routes(args):
@@ -1663,7 +1510,7 @@ def phase_kernels(cfg, s, carry, steps):
     win2 = mw.transpose_cuda(W)
     x, k = carry.packet_x, carry.packet_k
     sub_dt = s.dt / cfg.n_substeps
-    (args, (march_ms, march_single_ms), march_err, replaced,
+    (args, (march_ms, march_single_ms), march_err,
      march_route) = march_at_main_shapes(spec, carry.prev_win, win2, x, k,
                                          sub_dt)
 
@@ -1683,21 +1530,16 @@ def phase_kernels(cfg, s, carry, steps):
     emit("step_breakdown", unit="ms, median, each part alone, one call "
                                 "between two events",
          sum_of_parts=sum(breakdown.values()), **breakdown,
-         march_route=march_route, replaced_by_march_gathered_cuda=replaced)
+         march_route=march_route)
     phase_march_routes(args)
     march_ms_by_route = ms_by_route(
         lambda route, c: mw.march_gathered_cuda(*args, route=route,
                                                 consumers=c), spec, dtype)
     march_plain_ms = cuda_ms(lambda: mw.march_gathered_reference(*args), 3)
-    # Bytes the function must move: every window row that some packet
-    # reads, once (packets of one cell share their row: this run's count of
-    # occupied cells, not the packet count), and per packet xk, oi, oj in
-    # and xk, overflow out.
-    oi, oj = args[3], args[4]
-    occupied = int(torch.unique(oi.long() * spec.ny + oj).numel())
-    march_bytes = (occupied * 2 * spec.K * item
-                   + n_p * (4 * item + 8 + 4 * item + 4))
-    march_flops = n_p * march_flops_per_packet(spec)
+    # Bytes and operations the algorithm itself must move and do, whatever
+    # the window layout: the benchmark's counts (portbench/counts/march.py)
+    march_bytes = march_counts.bytes_moved(spec, n_p, 1, item)
+    march_flops = march_counts.flops(spec, n_p)
     by_bytes = march_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = march_flops / FLOPS_PER_S[dtype] * 1e3
 
@@ -1719,11 +1561,10 @@ def phase_kernels(cfg, s, carry, steps):
     # What the bounds were computed from, and what the errors were held to.
     bounds = {
         "flow_steps": steps,
-        "march": {"shape": f"win1, win2 {tuple(win2.shape)} {dtype} read by "
-                           f"cell, one row of 2K = {2 * spec.K} values an "
-                           f"occupied cell, xk (4, {n_p})",
-                  "occupied_cells": occupied,
-                  "cells": spec.nx * spec.ny,
+        "march": {"shape": f"both snapshots' {spec.nf} grids "
+                           f"({spec.nx}, {spec.ny}) {dtype} read once, xk "
+                           f"(4, {n_p}) read and written, one overflow word "
+                           "(portbench/counts/march.py)",
                   "bytes": march_bytes, "flops": march_flops,
                   "ms_by_bytes": by_bytes, "ms_by_operations": by_ops,
                   "tolerance": {"rtol": F32_RTOL, "atol": F32_ATOL}},
@@ -1743,8 +1584,7 @@ def phase_kernels(cfg, s, carry, steps):
          "plain_ms": march_plain_ms, "bound_ms": max(by_bytes, by_ops),
          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
          "library_ms": None, "single_launch_ms": march_single_ms,
-         "march_route": march_route, "ms_by_route": march_ms_by_route,
-         "replaced_ms": replaced["replaced_ms"], "replaced": replaced},
+         "march_route": march_route, "ms_by_route": march_ms_by_route},
         {"name": "transpose", "route": "cuda", "source": SOURCES["transpose"],
          "replaces": REPLACES["transpose"], "max_abs_err": tr_err,
          "ms": tr_ms, "plain_ms": tr_plain_ms, "bound_ms": tr_by_bytes,
@@ -1766,7 +1606,7 @@ def build_windows_other_shapes(nx, dev):
                               (torch.float64, 6, 1)):
         spec = mw.MarchSpec(nx=nx, ny=nx, dx=1.0, dy=1.0, f=3.0, Cg=1.0,
                             nf=nf, grad_from_interp=nf == 2, margin=margin,
-                            tiles_transposed=True, fused_build=True)
+                            fused_build=True)
         F = torch.randn((nf, nx, nx), dtype=dtype, device=dev, generator=g)
         out = mw.build_windows_cuda(F, spec)
         if not torch.equal(out, mw.build_windows_reference(F, spec)):
@@ -1809,7 +1649,7 @@ def phase_kernels_qg1(cfg, s, carry):
         raise AssertionError("build_windows differs from the two-pass route "
                              "at the main shape")
     x, k = carry.packet_x, carry.packet_k
-    _, (_, march_ms), _, replaced, march_route = march_at_main_shapes(
+    _, (_, march_ms), _, march_route = march_at_main_shapes(
         spec, carry.prev_win, got, x, k, s.dt / cfg.n_substeps)
     breakdown = time_parts({
         "qg_step": lambda: qg.qg_step(carry.flow_state, s.grid, qp),
@@ -1827,7 +1667,7 @@ def phase_kernels_qg1(cfg, s, carry):
     emit("step_breakdown_qg1", unit="ms, median, each part alone, one call "
                                     "between two events",
          sum_of_parts=sum(breakdown.values()), **breakdown,
-         march_route=march_route, replaced_by_march_gathered_cuda=replaced,
+         march_route=march_route,
          two_pass_route_on_the_same_fields=two_pass)
     del W
 
@@ -2198,7 +2038,6 @@ def phase_driver_path(tmp, main):
     launches = read_launches()
     took = {k: step_graph.ROUTES[k] - routes0[k] for k in routes0}
     routes = dict(mw.march_gathered_cuda.launches_by_route)
-    gathers = mw.gather_packet_windows.calls
     peak = torch.cuda.max_memory_allocated()
     rechecks = text.count("CFL recheck")
     metrics = rd.read_metrics()
@@ -2215,9 +2054,6 @@ def phase_driver_path(tmp, main):
         raise AssertionError(f"driver_path: march launches {launches}, "
                              f"routes {routes}, expected {ran} {rule} "
                              f"(chunk loop routes {took})")
-    if gathers != 0:
-        raise AssertionError(f"driver_path: gather_packet_windows was "
-                             f"called {gathers} times")
     rebuilds = launches["transpose"] - ran - 1
     if not 0 <= rebuilds <= rechecks:
         raise AssertionError(f"driver_path: {launches['transpose']} "
@@ -2303,7 +2139,7 @@ def phase_driver_path(tmp, main):
          transpose_per_wrapper_step=ran, transpose_first_carry=1,
          chunk_loop_routes=took,
          transpose_rebuilds_after_cfl_recheck=rebuilds,
-         cfl_rechecks=rechecks, gather_packet_windows_calls=gathers,
+         cfl_rechecks=rechecks,
          overflow=int(carry.overflow), omega_hist_frames=int(hist.shape[0]),
          omega_hist_overflow_slot=float(hist[:, -1].sum()),
          packet_steps_per_sec_chunks_2_to_6=rate,
@@ -2534,13 +2370,9 @@ def ensemble_kernel_rows(carry, s, es, cfg):
     k1_split = stepper_split(by_route, spec, dtype)
     k1_plain = cuda_ms(
         lambda: mw.march_gathered_batched_reference(*inputs, sub_dt, spec), 3)
-    # every row some packet of a member reads, once per member, and per
-    # packet xk, oi, oj in and xk, overflow out
-    occupied = [int(torch.unique(oi[e].long() * spec.ny + oj[e]).numel())
-                for e in range(E)]
-    k1_bytes = (sum(occupied) * 2 * spec.K * item
-                + E * n_p * (4 * item + 8 + 4 * item + 4))
-    k1_flops = E * n_p * march_flops_per_packet(spec)
+    # the benchmark's counts of the algorithm (portbench/counts/march.py)
+    k1_bytes = march_counts.bytes_moved(spec, E * n_p, E, item)
+    k1_flops = march_counts.flops(spec, E * n_p)
     k1_by_bytes = k1_bytes / HBM_BYTES_PER_S * 1e3
     k1_by_ops = k1_flops / FLOPS_PER_S[dtype] * 1e3
 
@@ -2598,12 +2430,11 @@ def ensemble_kernel_rows(carry, s, es, cfg):
             k3_bytes / HBM_BYTES_PER_S * 1e3, 0.0, k3_lib, k3_single)]
     bounds = {
         "march_batched": {
-            "shape": f"{E} members: win1, win2 ({E}, {spec.nx * spec.ny}, "
-                     f"{spec.K}) {dtype} read by cell, one row of 2K = "
-                     f"{2 * spec.K} values an occupied cell of a member, "
-                     f"xk ({E}, 4, {n_p}), sub_dt ({E},) float64",
-            "occupied_cells_by_member": occupied,
-            "cells_per_member": spec.nx * spec.ny, "bytes": k1_bytes,
+            "shape": f"{E} members: each member's {spec.nf} grids of both "
+                     f"snapshots ({spec.nx}, {spec.ny}) {dtype} read once, "
+                     f"xk ({E}, 4, {n_p}) read and written, one overflow "
+                     "word a member (portbench/counts/march.py)",
+            "bytes": k1_bytes,
             "flops": k1_flops, "ms_by_bytes": k1_by_bytes,
             "ms_by_operations": k1_by_ops,
             "tolerance": {"rtol": F32_RTOL, "atol": F32_ATOL}},
@@ -2994,9 +2825,9 @@ def differentiate(run_chunk, s, cfg, carry, steps, wrt, remat, window):
 def march_backward_flops_per_packet(spec):
     """Floating-point adds and multiplies of the march's backward for one
     packet over one flow step, as march_backward.cuh computes it: the
-    forward again (march_flops_per_packet), then each stage's adjoint:
-    the weights with their first and, with (u, v) windows, second
-    derivatives, the stencil's values and derivative sums, and each
+    forward again (march_counts.flops_per_packet), then each stage's
+    adjoint: the weights with their first and, with (u, v) windows,
+    second derivatives, the stencil's values and derivative sums, and each
     window entry's cotangent blended into both snapshots' rows."""
     grad = spec.grad_from_interp
     nf, stencil = spec.nf, spec.nf * 36
@@ -3010,7 +2841,7 @@ def march_backward_flops_per_packet(spec):
     adjoint = 8 + weights + 10 + stencil * per_entry + nf * 6 * per_column \
         + fields + 30
     stages = {"rk23": 3}[spec.stepper]
-    return (march_flops_per_packet(spec)
+    return (march_counts.flops_per_packet(spec)
             + spec.n_substeps * (stages * adjoint + 4 * 12))
 
 
@@ -3031,9 +2862,10 @@ def march_backward_bounds(spec, xk, win, occupied_cells):
 
 def march_backward_plain(s, carry):
     """The march's backward at the main shape, alone, on its two routes
-    (mw._march_backward, what fused_march_gathered's backward runs): the
-    plain route, autograd through march_gathered_reference on the saved
-    inputs, and the kernel route, march_gathered_backward_cuda; w.r.t.
+    (what fused_march_gathered's backward runs): the plain route
+    (mw._plain_cotangents), autograd through march_gathered_reference on
+    the saved inputs, and the kernel route (mw._march_backward on these
+    CUDA tensors), march_gathered_backward_cuda; w.r.t.
     both window arrays and the packets (the flow gradient) and w.r.t. the
     packets alone. Median of 3 between CUDA events after one warm-up, the
     peak bytes above its inputs, and the kernel's largest gap from the
@@ -3054,10 +2886,13 @@ def march_backward_plain(s, carry):
             saved_tensors=(win1, win2, xk, oi, oj), sub_dt=s.dt / 2,
             spec=spec, needs_input_grad=(*needs, False, False, False, False))
         row, grads = {}, {}
-        for route, kernel in (("plain", None),
-                              ("kernel", mw.march_gathered_backward_cuda)):
-            fn = lambda: mw._march_backward(ctx, mw.march_gathered_reference,
-                                            ct, kernel)
+        # the plain route is what _march_backward runs off the kernel's
+        # cases (autograd through march_gathered_reference); on these CUDA
+        # tensors _march_backward itself takes the kernel route
+        plain = (lambda: mw._plain_cotangents(
+            win1, win2, xk, oi, oj, s.dt / 2, ct, spec, [*needs, False]))
+        for route, fn in (("plain", plain),
+                          ("kernel", lambda: mw._march_backward(ctx, ct))):
             fn()
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()

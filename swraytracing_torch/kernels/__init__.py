@@ -26,9 +26,9 @@ Kernels (C entry -> wrapper):
                                 ring of shared-memory slots while consumer
                                 warps march
                                 ops.march_window.march_gathered_cuda (rows
-                                read by cell from the window arrays) and
-                                march_cuda (pre-gathered rows), by the
-                                route ops.march_window.march_route gives
+                                read by cell from the window arrays), by
+                                the route ops.march_window.march_route
+                                gives
   swr_march_batched_f32, _f64,  the same kernels over the members of an
   swr_march_batched_staged_f32, ensemble in one launch, each member's
   _f64, swr_march_batched_      substep length read from a float64 device
@@ -141,8 +141,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                   lib.swr_march_ring_f32, lib.swr_march_ring_f64):
         march.restype = i32
         march.argtypes = [
-            vp, vp, i64, i64,    # snapshot-1 / snapshot-2 windows, strides
-            i32,                 # rows by cell (1) or by packet (0)
+            vp, vp,              # snapshot-1 / snapshot-2 (ncells, K) windows
             vp, vp, vp,          # xk, oi, oj
             vp, vp,              # out, overflow
             i64, f64,            # Np, sub_dt

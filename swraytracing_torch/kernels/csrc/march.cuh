@@ -23,16 +23,13 @@
 // live 6x6 sub-window at offset (di+m, dj+m) of its row, blending the two
 // snapshots as it reads. Two things keep the bytes near what must move:
 //
-//  * The gathered row base. With `gathered` set, p1 and p2 are the
-//    cell-window arrays themselves, (ncells, K) rows, and a packet's row
-//    is row oi*ny + oj of each: no gathered copy is written or read back.
-//    Without it the row is the packet's own (the pre-gathered layouts,
-//    through the two strides sp and se: (Np, K), (K, Np), and the combined
-//    two-snapshot forms of both).
+//  * The row by cell. p1 and p2 are the cell-window arrays themselves,
+//    (ncells, K) rows of K = nf * SW^2 elements, and a packet's row is
+//    row oi*ny + oj of each: no gathered copy is written or read back.
 //
-//  * Staging (template parameter STAGED, row layouts only, se == 1). A
-//    thread reading its own row touches 32 different sectors per warp
-//    instruction, at every one of the 36 x nf x 2 reads of every stage.
+//  * Staging (template parameter STAGED). A thread reading its own row
+//    touches 32 different sectors per warp instruction, at every one of
+//    the 36 x nf x 2 reads of every stage.
 //    Instead each warp first copies its 32 packets' rows into shared
 //    memory, the 32 lanes together reading consecutive elements of ONE
 //    row, so device memory is read once per row and fully coalesced;
@@ -51,13 +48,12 @@
 //
 // Which of the two a launch takes is the caller's rule on (2K, element
 // size) alone (march_route in march_window.py): staged while a warp's
-// rows fit in an SM's shared memory, else direct per-thread loads;
-// the (K, Np) layout is always direct, its loads being coalesced across
-// lanes already. A staged launch that does not fit is refused, not
-// rerouted. march_ring.cuh runs the same packets through a third route,
-// in which producer warps of a persistent block copy the rows into a ring
-// of slots while consumer warps march; the rule gives it the row sizes at
-// which the ring holds four consumer warps (float32 at K <= 128).
+// rows fit in an SM's shared memory, else direct per-thread loads. A
+// staged launch that does not fit is refused, not rerouted.
+// march_ring.cuh runs the same packets through a third route, in which
+// producer warps of a persistent block copy the rows into a ring of slots
+// while consumer warps march; the rule gives it the row sizes at which the
+// ring holds four consumer warps (float32 at K <= 128).
 //
 // Members. The same kernel marches the members of an ensemble in one
 // launch (B5: `_march_kernel` under `jax.vmap` in the JAX package's
@@ -81,8 +77,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <type_traits>
-
 #include "scalar.cuh"
 
 namespace {
@@ -91,11 +85,8 @@ enum { RK23 = 0, RK4 = 1, SYMPLECTIC = 2 };
 
 template <typename T>
 struct MarchArgs {
-  const T* p1;          // snapshot-1 windows
-  const T* p2;          // snapshot-2 windows
-  long long sp;         // stride between rows, in elements
-  long long se;         // stride between window components, in elements
-  int gathered;         // row = oi*ny + oj (cell-window arrays), else packet
+  const T* p1;          // snapshot-1 windows, (ncells, K)
+  const T* p2;          // snapshot-2 windows, (ncells, K)
   const T* xk;          // (4, Np)
   const int* oi;        // (Np,)
   const int* oj;        // (Np,)
@@ -189,9 +180,6 @@ __device__ __forceinline__ int eval_fields(const MarchArgs<T>& A,
 
   const T alpha = T(alpha_d);
   const T oma = T(1.0 - alpha_d);
-  // offsets into shared memory fit 32 bits and have unit stride
-  typedef typename std::conditional<STAGED, int, long long>::type Idx;
-  const Idx se = STAGED ? Idx(1) : Idx(A.se);
   constexpr int NF = GRAD ? 2 : 6;
   T val[NF], gx[NF], gy[NF];  // sum_x ty*wx, sum_x ty*dwx, sum_x tdy*wx
 #pragma unroll
@@ -199,11 +187,11 @@ __device__ __forceinline__ int eval_fields(const MarchArgs<T>& A,
     T acc = T(0), accx = T(0), accy = T(0);
 #pragma unroll
     for (int a = 0; a < 6; ++a) {
-      const Idx base = Idx((f * sw + di + m + a) * sw + dj + m) * se;
+      const int base = (f * sw + di + m + a) * sw + dj + m;
       T ty = T(0), tdy = T(0);
 #pragma unroll
       for (int b = 0; b < 6; ++b) {  // y first
-        const Idx at = base + b * se;
+        const int at = base + b;
         const T v = STAGED ? oma * r1[at] + alpha * r2[at]
                            : oma * __ldg(r1 + at) + alpha * __ldg(r2 + at);
         ty += v * wy[b];
@@ -254,13 +242,13 @@ __device__ __forceinline__ int rhs(const MarchArgs<T>& A,
 }
 
 // Copy the rows of this warp's `nrows` packets (lane r holds `row` of
-// packet r) from p1, p2 into shared memory at `dst`, packet r at
-// dst + r*stride: K elements of snapshot 1, then K of snapshot 2. The
-// lanes copy consecutive elements of one row with asynchronous
-// element-sized copies (cp.async), so an instruction reads 32 consecutive
-// elements of device memory and writes them to 32 different banks, no
-// register holds the data, and all of the warp's rows are in flight at
-// once. Returns when this thread's copies have landed; the caller's
+// packet r, a row of K elements) from p1, p2 into shared memory at `dst`,
+// packet r at dst + r*stride: K elements of snapshot 1, then K of
+// snapshot 2. The lanes copy consecutive elements of one row with
+// asynchronous element-sized copies (cp.async), so an instruction reads 32
+// consecutive elements of device memory and writes them to 32 different
+// banks, no register holds the data, and all of the warp's rows are in
+// flight at once. Returns when this thread's copies have landed; the caller's
 // __syncwarp() makes the other lanes' visible.
 template <typename T>
 __device__ __forceinline__ void stage_rows(const MarchArgs<T>& A, T* dst,
@@ -268,7 +256,7 @@ __device__ __forceinline__ void stage_rows(const MarchArgs<T>& A, T* dst,
                                            int nrows, int lane) {
   for (int r = 0; r < nrows; ++r) {
     // every lane takes part in the shuffle: nrows is the same for all
-    const long long at = __shfl_sync(0xffffffffu, row, r) * A.sp;
+    const long long at = __shfl_sync(0xffffffffu, row, r) * K;
     T* s = dst + r * stride;
     for (int c = lane; c < K; c += 32) {
       __pipeline_memcpy_async(s + c, A.p1 + at + c, sizeof(T));
@@ -382,14 +370,14 @@ __global__ void __launch_bounds__(256) march_kernel(const MarchArgs<T> A0) {
   if (!STAGED && !live) return;
   const int oi = live ? A.oi[pkt] : 0, oj = live ? A.oj[pkt] : 0;
   // 64-bit: ncells*K passes 2^31 at 1024^2
-  const long long row = A.gathered ? (long long)oi * A.ny + oj : pkt;
+  const long long row = (long long)oi * A.ny + oj;
+  const int sw = 6 + 2 * A.margin;
+  const int K = (GRAD ? 2 : 6) * sw * sw;
   const T* __restrict__ r1;
   const T* __restrict__ r2;
   if (STAGED) {
     extern __shared__ __align__(8) unsigned char march_rows[];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int sw = 6 + 2 * A.margin;
-    const int K = (GRAD ? 2 : 6) * sw * sw;
     const int stride = 2 * K + 1;
     const long long first = pkt - lane;  // the warp's first packet
     if (first >= A.np) return;           // the whole warp is past the end
@@ -401,8 +389,8 @@ __global__ void __launch_bounds__(256) march_kernel(const MarchArgs<T> A0) {
     r1 = mine + lane * stride;
     r2 = r1 + K;
   } else {
-    r1 = A.p1 + row * A.sp;
-    r2 = A.p2 + row * A.sp;
+    r1 = A.p1 + row * K;
+    r2 = A.p2 + row * K;
   }
   march_packet<T, GRAD, STEPPER, STAGED>(A, r1, r2, oi, oj, pkt);
 }
@@ -477,11 +465,11 @@ int launch_stepper(const MarchArgs<T>& A, int stepper, int members,
 
 // nf = 2: (u, v) windows, gradients from the interpolant's derivative;
 // nf = 6: (u, v, ux, uy, vx, vy) windows. stepper: 0 rk23, 1 rk4,
-// 2 symplectic. gathered: p1, p2 are (ncells, K) cell-window arrays and a
-// packet reads row oi*ny + oj (oi, oj trusted to lie in [0, n)); else row
-// `packet`. ROUTE_STAGED needs se == 1 and threads/32 warps' rows within
-// an SM's shared memory; ROUTE_RING needs se == 1, two slots of 32 rows
-// within it, and threads = 32 x (consumer warps + 1), the consumers fewer
+// 2 symplectic. p1, p2 are (ncells, K) cell-window arrays, K = nf *
+// (6 + 2 margin)^2, and a packet reads row oi*ny + oj (oi, oj trusted to
+// lie in [0, n)). ROUTE_STAGED needs threads/32 warps' rows within an
+// SM's shared memory; ROUTE_RING needs two slots of 32 rows within it,
+// and threads = 32 x (consumer warps + 1), the consumers fewer
 // than the slots. members: the number of members (1 for a
 // single-member launch), at most 65535; member m's windows start
 // member_win elements after member m-1's, its xk and out 4*np, its oi, oj
@@ -491,9 +479,8 @@ int launch_stepper(const MarchArgs<T>& A, int stepper, int members,
 // with no kernel, or -2 for a staged block whose rows pass SMEM_PER_SM or
 // a ring with fewer than two slots.
 template <typename T, int ROUTE>
-int launch(const void* p1, const void* p2, long long sp, long long se,
-           int gathered, const void* xk, const void* oi, const void* oj,
-           void* out, void* ov, long long np, double sub_dt,
+int launch(const void* p1, const void* p2, const void* xk, const void* oi,
+           const void* oj, void* out, void* ov, long long np, double sub_dt,
            const void* sub_dt_e, int members, long long member_win, int nx,
            int ny, double inv_dx, double inv_dy, double f2, double gH,
            int margin, int nsub, int nf, int stepper, int threads,
@@ -501,9 +488,6 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
   MarchArgs<T> A;
   A.p1 = (const T*)p1;
   A.p2 = (const T*)p2;
-  A.sp = sp;
-  A.se = se;
-  A.gathered = gathered;
   A.xk = (const T*)xk;
   A.oi = (const int*)oi;
   A.oj = (const int*)oj;
@@ -524,7 +508,6 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
   if (threads < 32 || threads > 384 || threads % 32 || margin < 0 ||
       nsub < 1 || members < 0 || members > 65535)
     return -1;
-  if (ROUTE != ROUTE_DIRECT && se != 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (nf == 2)
     return launch_stepper<T, true, ROUTE>(A, stepper, members, threads, s);
@@ -534,21 +517,20 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
 }
 
 // The C entries of one scalar type and route (march_*.cu), to stand
-// behind `extern "C"`: `name` marches one member with the substep length
-// as an argument; `batched` marches `members` members of (ncells, K)
-// window arrays read by cell (gathered), each with its own substep length
+// behind `extern "C"`: `name` marches one member of (ncells, K) window
+// arrays read by cell, with the substep length as an argument; `batched`
+// marches `members` members of them, each with its own substep length
 // from the float64 device array sub_dt_e.
 #define SWR_MARCH_ENTRY(name, batched, T, ROUTE)                             \
   int name(                                                                  \
-      const void* p1, const void* p2, long long sp, long long se,            \
-      int gathered, const void* xk, const void* oi, const void* oj,          \
-      void* out, void* ov, long long np, double sub_dt, int nx, int ny,      \
-      double inv_dx, double inv_dy, double f2, double gH, int margin,        \
-      int nsub, int nf, int stepper, int threads, void* stream) {            \
-    return launch<T, ROUTE>(p1, p2, sp, se, gathered, xk, oi, oj, out, ov,   \
-                            np, sub_dt, nullptr, 1, 0, nx, ny, inv_dx,       \
-                            inv_dy, f2, gH, margin, nsub, nf, stepper,       \
-                            threads, stream);                                \
+      const void* win1, const void* win2, const void* xk, const void* oi,    \
+      const void* oj, void* out, void* ov, long long np, double sub_dt,      \
+      int nx, int ny, double inv_dx, double inv_dy, double f2, double gH,    \
+      int margin, int nsub, int nf, int stepper, int threads,                \
+      void* stream) {                                                        \
+    return launch<T, ROUTE>(win1, win2, xk, oi, oj, out, ov, np, sub_dt,     \
+                            nullptr, 1, 0, nx, ny, inv_dx, inv_dy, f2, gH,   \
+                            margin, nsub, nf, stepper, threads, stream);     \
   }                                                                          \
   int batched(                                                               \
       const void* win1, const void* win2, int members, long long ncells,     \
@@ -556,11 +538,12 @@ int launch(const void* p1, const void* p2, long long sp, long long se,
       void* ov, long long np, const void* sub_dt_e, int nx, int ny,          \
       double inv_dx, double inv_dy, double f2, double gH, int margin,        \
       int nsub, int nf, int stepper, int threads, void* stream) {            \
-    if (!sub_dt_e) return -1;                                                \
-    return launch<T, ROUTE>(win1, win2, K, 1, 1, xk, oi, oj, out, ov, np,    \
-                            0.0, sub_dt_e, members, ncells * K, nx, ny,      \
-                            inv_dx, inv_dy, f2, gH, margin, nsub, nf,        \
-                            stepper, threads, stream);                       \
+    const int sw = 6 + 2 * margin;                                           \
+    if (!sub_dt_e || K != (nf == 2 ? 2 : 6) * sw * sw) return -1;            \
+    return launch<T, ROUTE>(win1, win2, xk, oi, oj, out, ov, np, 0.0,        \
+                            sub_dt_e, members, ncells * K, nx, ny, inv_dx,   \
+                            inv_dy, f2, gH, margin, nsub, nf, stepper,       \
+                            threads, stream);                                \
   }
 
 }  // namespace

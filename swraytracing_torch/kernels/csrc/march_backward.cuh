@@ -69,8 +69,8 @@ constexpr int BWD_MAX_SUBSTEPS = 8;
 
 template <typename T>
 struct BackwardArgs {
-  MarchArgs<T> m;          // p1, p2: the window arrays; sp = K; xk; the
-                           // grid, the step and the substeps
+  MarchArgs<T> m;          // p1, p2: the window arrays; xk; the grid,
+                           // the step and the substeps
   const int* key;          // (Np,) cell of the packet at each position
   const long long* perm;   // (Np,) packet at each position, or null
   const long long* ends;   // (ncells,) positions in cells 0..c (with perm)
@@ -574,9 +574,6 @@ int launch_march_backward(const void* win1, const void* win2, const void* xk,
   A.p2 = (const T*)win2;
   const int sw = 6 + 2 * margin;
   const int K = (nf == 2 ? 2 : 6) * sw * sw;
-  A.sp = K;
-  A.se = 1;
-  A.gathered = 1;
   A.xk = (const T*)xk;
   A.oi = nullptr;
   A.oj = nullptr;

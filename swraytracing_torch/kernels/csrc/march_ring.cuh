@@ -144,15 +144,14 @@ __global__ void __launch_bounds__(RING_MAX_THREADS<T>, 1)
         oi = A0.oi[member * A0.np + first + lane];
         oj = A0.oj[member * A0.np + first + lane];
       }
-      const long long row =
-          A0.gathered ? (long long)oi * A0.ny + oj : first + lane;
+      const long long row = (long long)oi * A0.ny + oj;
       const T* p1 = A0.p1 + member * A0.member_win;
       const T* p2 = A0.p2 + member * A0.member_win;
       T* dst = rows + (size_t)s * 32 * stride;
       bar_wait(empty + s, (round & 1) ^ 1);  // round 0 passes at once
       for (int r = warp; r < nrows; r += RING_PRODUCERS) {
         // every lane takes part in the shuffle: nrows is the same for all
-        const long long at = __shfl_sync(0xffffffffu, row, r) * A0.sp;
+        const long long at = __shfl_sync(0xffffffffu, row, r) * K;
         T* d = dst + r * stride;
         for (int c = lane; c < K; c += 32) {
           __pipeline_memcpy_async(d + c, p1 + at + c, sizeof(T));

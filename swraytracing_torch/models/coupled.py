@@ -12,8 +12,9 @@ fields.BlendedFlow (below it, or with fused_march off; from
 window_min_np packets on that path interpolates from prebuilt windows).
 
 The velocity grids of the *previous* step are reused as the blend-start
-snapshot, and so are their gather windows, so each step builds windows
-for its new snapshot only.
+snapshot, and so are their window arrays, so each step builds windows for
+its new snapshot only. The fused march reads (ncells, K) window rows only,
+one row a cell, by each packet's cell.
 
 This module holds the carry, the packet initial conditions, the march
 configuration, the generic lock-step iteration (both packet paths) and
@@ -98,10 +99,9 @@ class CoupledConfig(NamedTuple):
     # tensor by differentiating the Lagrange interpolant. Turn off for
     # bit-parity with the spectral-gradient grids.
     march_uv_windows: bool = True
-    # ONE gather per packet per flow step over both snapshots stacked on
-    # the window axis. Arithmetic is bit-identical to two gathers. No
-    # effect on the (ncells, K) row layout this module sets up: there the
-    # march kernel reads its rows by cell and nothing is gathered.
+    # Accepted so that this config mirrors the JAX package's field for
+    # field, and read nowhere: the port's march reads (ncells, K) window
+    # rows by cell and gathers nothing, whatever it says.
     march_combined_gather: bool = True
     # Explicit march margin (cells) overriding required_margin's CFL
     # sizing; None = size from dt and the initial max speed.
@@ -192,9 +192,8 @@ def build_march_spec(cfg, grid: SpectralGrid, dt: float, U0: float):
     return mw.MarchSpec(
         nx=grid.nx, ny=grid.ny, dx=grid.dx, dy=grid.dy,
         f=cfg.f, Cg=cfg.Cg, n_substeps=cfg.n_substeps,
-        stepper=cfg.stepper, margin=margin, tiles_transposed=True,
-        nf=2 if uv else 6, grad_from_interp=uv,
-        combined_gather=getattr(cfg, "march_combined_gather", False),
+        stepper=cfg.stepper, margin=margin, nf=2 if uv else 6,
+        grad_from_interp=uv,
         fused_build=getattr(cfg, "march_fused_build", False))
 
 
@@ -251,12 +250,10 @@ def lockstep_step(carry: CoupledCarry, flow_step_fn, fields_fn, grid, disp,
         are then not read. The caller forms it on the host from each
         member's t, dt and delay (parallel/ensemble.py).
 
-    The fused march: with (ncells, K) window rows (march.tiles_transposed,
-    what build_march_spec always makes) the packets march straight from
-    the two window arrays (march_window.fused_march_gathered): no stacked
-    copy, no gathered copy, whatever march.combined_gather says. A
-    hand-made spec with (K, ncells) windows gathers first, in one gather
-    (combined_gather) or two, and calls march_window.fused_march.
+    The fused march reads (ncells, K) window rows only: the packets march
+    straight from the two window arrays (march_window.fused_march_gathered
+    for a single run, march_gathered_batched for an ensemble's members),
+    with no stacked copy and no gathered copy.
 
     The per-stage path (march None) evaluates the blended flow at every
     stage of n_substeps rk23 / rk4 steps with the alpha ramp, or of
@@ -370,9 +367,6 @@ def _march_step(carry, new_state, fields2, sub_dt, n_substeps, stepper,
     if win1 is None or win1.shape != win2.shape:
         win1 = mw.build_gather_windows(carry.prev_fields, march)
     x, k = carry.packet_x, carry.packet_k
-    if x.dim() == 3 and not march.tiles_transposed:
-        raise ValueError("an ensemble's march reads (ncells, K) window "
-                         "rows: tiles_transposed=True")
     with span("swr.march"):
         if x.dim() == 3:
             oi, oj = mw.packet_cells(x[:, 0], x[:, 1], march)
@@ -381,8 +375,8 @@ def _march_step(carry, new_state, fields2, sub_dt, n_substeps, stepper,
             new_ov = ov.amax(dim=1)
         else:
             oi, oj = mw.packet_cells(x[0], x[1], march)
-            out, ov = _march_packets(win1, win2, torch.cat([x, k], dim=0),
-                                     oi, oj, sub_dt, march)
+            out, ov = mw.fused_march_gathered(
+                win1, win2, torch.cat([x, k], dim=0), oi, oj, sub_dt, march)
             new_ov = ov.max()
         overflow = (new_ov if carry.overflow is None
                     else torch.maximum(carry.overflow, new_ov))
@@ -390,25 +384,6 @@ def _march_step(carry, new_state, fields2, sub_dt, n_substeps, stepper,
     return CoupledCarry(flow_state=new_state, packet_x=out[..., :2, :],
                         packet_k=out[..., 2:, :], prev_fields=fields2,
                         prev_win=out_win, overflow=overflow)
-
-
-def _march_packets(win1, win2, xk, oi, oj, sub_dt, march):
-    """One run's march from the two snapshots' window arrays."""
-    if march.tiles_transposed:
-        # (ncells, K) rows: the march reads each packet's row of both
-        # window arrays by its cell; nothing is stacked or gathered first.
-        return mw.fused_march_gathered(win1, win2, xk, oi, oj, sub_dt, march)
-    if march.combined_gather:
-        # Both snapshots' windows stacked on the K axis -> ONE gather per
-        # packet per flow step.
-        winc = torch.cat([win1, win2],
-                         dim=-1 if march.tiles_transposed else 0)
-        pwc = mw.gather_packet_windows(winc, oi, oj, march)
-        dummy = pwc.new_zeros((1, 1))
-        return mw.fused_march(pwc, dummy, xk, oi, oj, sub_dt, march)
-    pw1 = mw.gather_packet_windows(win1, oi, oj, march)
-    pw2 = mw.gather_packet_windows(win2, oi, oj, march)
-    return mw.fused_march(pw1, pw2, xk, oi, oj, sub_dt, march)
 
 
 def prepare_carry_windows(carry: CoupledCarry, remat: bool = False,
@@ -448,10 +423,8 @@ def prepare_carry_windows(carry: CoupledCarry, remat: bool = False,
             return dataclasses.replace(carry, prev_win=None)
         return carry
     if march_on:
-        # Stale-window check must follow the window layout:
-        # tiles_transposed stores (ncells, K), otherwise (K, ncells).
-        k_ax = -1 if march.tiles_transposed else 0
-        if win is None or win.shape[k_ax] != march.K:
+        # (ncells, K) rows: a window array of another K is stale
+        if win is None or win.shape[-1] != march.K:
             return dataclasses.replace(carry, prev_win=mw.build_gather_windows(
                 carry.prev_fields, march))
         return carry

@@ -73,10 +73,9 @@ class Coupled2Config(NamedTuple):
     # Windows hold only (u, v); the march forms the velocity-gradient
     # tensor by differentiating the Lagrange interpolant.
     march_uv_windows: bool = True
-    # ONE gather per packet per flow step over both snapshots stacked on
-    # the window axis. Arithmetic is bit-identical to two gathers. No
-    # effect on the (ncells, K) row layout the setup makes: there the
-    # march kernel reads its rows by cell and nothing is gathered.
+    # Accepted so that this config mirrors the JAX package's field for
+    # field, and read nowhere: the port's march reads (ncells, K) window
+    # rows by cell and gathers nothing, whatever it says.
     march_combined_gather: bool = True
     window_min_np: int = 65536
     # Explicit march margin (cells) overriding required_margin's CFL

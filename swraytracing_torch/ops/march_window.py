@@ -1,5 +1,5 @@
 """Fused wave-packet march: all packet substeps of one flow step in one
-kernel, fed by ONE window gather per packet per snapshot.
+kernel, which reads each packet's stencil window by its cell.
 
 Counterpart of swraytracing_tpu/ops/pallas_window.py. The reference
 sub-cycles each flow step with ode23, paying a 6x6 Lagrangian stencil
@@ -8,20 +8,19 @@ qgsw_raytrace.m:149,258-268).
 
 Key observation: over ONE flow step a packet moves at most
 dt*(|U|+Cg)/dx cells — under the production CFL that is < 1 cell. So a
-stencil window gathered once per flow step, widened by a `margin` of
-cells on each side, contains every stencil node that any substage of
-that step can touch. The march then needs NO gathers at all:
+stencil window read once per flow step, widened by a `margin` of cells on
+each side, contains every stencil node that any substage of that step can
+touch. The march then needs NO gathers at all:
 
   per flow step:
-    build W  = cell windows of the new snapshot    (K, nx*ny), K = nf*SW^2
-    gather   pw = W[cell(x)] per packet, both snapshots
-    kernel   all n_substeps x stages in one launch: Lagrange weights,
+    build W  = cell windows of the new snapshot    (ncells, K), K = nf*SW^2
+    kernel   all n_substeps x stages in one launch: each packet reads row
+             cell(x) of both snapshots' W itself, then Lagrange weights,
              margin shift, time blend, dispersion, RK/symplectic update
 
-With (ncells, K) window rows (`tiles_transposed`) the gather is part of
-the kernel: a packet reads row cell(x) of both snapshots' window arrays
-itself (march_gathered_cuda / fused_march_gathered), and no gathered copy
-exists.
+The window arrays are (ncells, K) rows, one a cell, the only layout the
+march takes (march_gathered_cuda / fused_march_gathered); no gathered
+copy exists.
 
 Within-margin arithmetic is IDENTICAL to the reference stencil: the same
 6 Lagrange weights (Durran Ch. 6, interpolate.m:37-44) are placed at the
@@ -32,13 +31,13 @@ the `overflow` output (callers assert it stays zero; see required_margin).
 Four device kernels, hand-written CUDA under kernels/csrc, each with its
 plain PyTorch version beside its wrapper here:
 
-  march_cuda          (csrc/march.cuh)          plain: march_reference
-  march_gathered_cuda (the same kernel, rows  plain: march_gathered_reference
-                       read by cell)
+  march_gathered_cuda (csrc/march.cuh,          plain: march_gathered_reference
+                       march_ring.cuh)                 (gather_packet_windows,
+                                                       then march_reference)
   march_gathered_backward_cuda                  plain: autograd through
                       (csrc/march_backward.cuh, march_gathered_reference,
-                       the gathered march's      march_gathered_backward_
-                       backward)                 reference
+                       the march's backward)     march_gathered_backward_
+                                                 reference
   transpose_cuda      (csrc/transpose.cu)       plain: transpose_reference
   build_windows_cuda  (csrc/build_windows.cu)   plain: build_windows_reference
 
@@ -54,20 +53,18 @@ single-member one:
 `march_gathered_batched`, `transpose_batched` and `build_windows_batched`
 pick between the two by device; nothing differentiates them.
 
-`fused_march`, `fused_march_gathered`, `window_transpose` and
-`build_windows_fused` are the differentiable entry points. They pick by
-the device of the tensor they are given: a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel. Nothing falls back: on a CUDA tensor the kernel launches or the
-call raises.
+`fused_march_gathered`, `window_transpose` and `build_windows_fused` are
+the differentiable entry points. They pick by the device of the tensor
+they are given: a CPU tensor goes to the plain version, a CUDA tensor to
+the kernel. Nothing falls back: on a CUDA tensor the kernel launches or
+the call raises.
 
-Layouts: packet windows are (K, Np), or (Np, K) gather rows when
-`tiles_transposed`. The CUDA kernel takes both through strides. For the
-row layouts it copies the rows into shared memory before it marches: each
-warp its own 32 packets' rows and then marches them (the `staged` route,
-csrc/march.cuh), or producer warps in a persistent block fill a ring of
-slots while consumer warps march the packets of the slots already full
-(the `ring` route, csrc/march_ring.cuh); the third route, `direct`, reads
-every row per thread from device memory. `march_route` is the rule.
+The march kernel copies the rows into shared memory before it marches:
+each warp its own 32 packets' rows and then marches them (the `staged`
+route, csrc/march.cuh), or producer warps in a persistent block fill a
+ring of slots while consumer warps march the packets of the slots already
+full (the `ring` route, csrc/march_ring.cuh); the third route, `direct`,
+reads every row per thread from device memory. `march_route` is the rule.
 """
 
 from __future__ import annotations
@@ -91,8 +88,6 @@ __all__ = [
     "packet_cells",
     "gather_packet_windows",
     "march_reference",
-    "march_cuda",
-    "fused_march",
     "march_route",
     "staged_block_limit",
     "ring_slots",
@@ -144,24 +139,21 @@ class MarchSpec(NamedTuple):
     # route does not read it: its block, one an SM, is RING_PRODUCERS
     # producer warps and ring_consumers(spec, dtype) consumer warps.
     block: int = 32
-    tiles_transposed: bool = False # pw passed as (Np, K) gather rows
+    # The march reads (ncells, K) window rows only, and _check_spec
+    # refuses False. The field stays only while the benchmark's counts
+    # test (portbench/tests/test_portbench_counts.py) builds specs with
+    # it; it goes once that test stops passing it.
+    tiles_transposed: bool = True
     # Windows carry only (u, v) (nf=2); the march evaluates the
     # velocity-gradient tensor by DIFFERENTIATING the Lagrange
     # interpolant (w'_i(fx) w_j(fy) / dx) instead of interpolating
     # spectrally differentiated grids (grid_U.m:1-18). 3x smaller windows;
     # the accuracy cost is 5th order in dx.
     grad_from_interp: bool = False
-    # Both snapshots' packet windows arrive in ONE gathered array,
-    # stacked on the K axis ((2K, Np), or (Np, 2K) tiles_transposed).
-    # fused_march's pw2 argument is then a dummy. Read by march_reference,
-    # march_cuda and fused_march only: the gathered entries
-    # (march_gathered_*, what the lock-step calls for (ncells, K) rows)
-    # take the two window arrays themselves and gather nothing.
-    combined_gather: bool = False
     # Build the (ncells, K) window array in ONE kernel
     # (build_windows_fused) instead of shifted copies + the tiled
     # transpose: the window array is written once and never re-read.
-    # Takes effect with tiles_transposed; same output bit for bit.
+    # Same output bit for bit.
     fused_build: bool = False
 
     @property
@@ -250,28 +242,24 @@ def build_windows_reference(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
 
 
 def build_gather_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
-    """Cell-window array in the layout gather_packet_windows expects:
-    (K, ncells) when tiles_transposed=False, else (ncells, K) for
-    contiguous row gathers: in one pass with spec.fused_build
-    (build_windows_fused), else through window_transpose (the transpose
-    kernel on a CUDA tensor). Both serve any nx, ny.
+    """(nf, nx, ny) fields -> the (ncells, K) window array the march reads
+    by cell: in one pass with spec.fused_build (build_windows_fused), else
+    shifted copies through window_transpose (the transpose kernel on a
+    CUDA tensor). Both serve any nx, ny.
 
-    An ensemble's (E, nf, nx, ny) fields give (E, ...) arrays, member by
-    member the same, through the batched kernels (build_windows_batched,
-    transpose_batched): one launch for all members. Runs inside the span
-    swr.windows (utils/profiling.span)."""
+    An ensemble's (E, nf, nx, ny) fields give (E, ncells, K) arrays,
+    member by member the same, through the batched kernels
+    (build_windows_batched, transpose_batched): one launch for all
+    members. Runs inside the span swr.windows (utils/profiling.span)."""
+    _check_spec(spec)
     with span("swr.windows"):
         if F.dim() == 4:
-            if spec.tiles_transposed and spec.fused_build:
+            if spec.fused_build:
                 return build_windows_batched(F, spec)
-            W = build_margin_windows(F, spec)
-            return transpose_batched(W) if spec.tiles_transposed else W
-        if spec.tiles_transposed and spec.fused_build:
+            return transpose_batched(build_margin_windows(F, spec))
+        if spec.fused_build:
             return build_windows_fused(F, spec)
-        W = build_margin_windows(F, spec)
-        if not spec.tiles_transposed:
-            return W
-        return window_transpose(W)
+        return window_transpose(build_margin_windows(F, spec))
 
 
 def packet_cells(x: torch.Tensor, y: torch.Tensor, spec: MarchSpec):
@@ -290,24 +278,11 @@ def packet_cells(x: torch.Tensor, y: torch.Tensor, spec: MarchSpec):
 
 
 def gather_packet_windows(W: torch.Tensor, oi, oj, spec: MarchSpec):
-    """One row (or column) gather per packet: W -> pw.
-
-    tiles_transposed=False: W is (K, ncells); gathers columns -> (K, Np).
-    tiles_transposed=True: W is (ncells, K); gathers rows -> (Np, K).
-
-    Feeds the pre-gathered march (march_reference / march_cuda /
-    fused_march): the (K, ncells) layout's route, and the plain version of
-    the gathered march. On the card the lock-step does not come here for
-    (ncells, K) rows; the kernel reads them by cell. Counts its calls in
-    `gather_packet_windows.calls`, so a run can show that."""
-    gather_packet_windows.calls += 1
-    starts = oi.to(torch.int64) * spec.ny + oj
-    if spec.tiles_transposed:
-        return W.index_select(0, starts)      # (Np, K)
-    return W.index_select(1, starts)          # (K, Np)
-
-
-gather_packet_windows.calls = 0
+    """One row gather per packet: the (ncells, K) window array W -> the
+    packets' rows (Np, K), row oi*ny + oj each. The gather of the march's
+    plain version (march_gathered_reference); the kernel reads the rows by
+    cell itself."""
+    return W.index_select(0, oi.to(torch.int64) * spec.ny + oj)
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +488,10 @@ def _march_core(pw1, pw2, x0, x1, k0, k1, oi, oj, sub_dt, spec: MarchSpec):
 
 
 def _check_spec(spec: MarchSpec):
+    if not spec.tiles_transposed:
+        raise ValueError(
+            "the march takes (ncells, K) window rows only: "
+            "MarchSpec.tiles_transposed=False is refused")
     if spec.grad_from_interp != (spec.nf == 2) or spec.nf not in (2, 6):
         raise ValueError(
             "the march takes nf=6 windows (u, v and the four gradients) or, "
@@ -525,25 +504,14 @@ def _check_spec(spec: MarchSpec):
 
 
 def march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
-    """Plain PyTorch fused march over all packets at once (any device):
-    the plain version of march_cuda, the CPU path, and what fused_march
-    differentiates. pw*: (K, Np) (or (Np, K) when spec.tiles_transposed);
-    xk (4, Np) = [x, y, kx, ky]; sub_dt a Python float or 0-dim tensor;
-    returns (xk_out (4, Np), overflow (Np,) int32).
-
-    combined_gather: pw1 carries BOTH snapshots stacked on the K axis
-    ((2K, Np) / (Np, 2K)); pw2 is ignored (pass any tensor)."""
+    """Plain PyTorch fused march over all packets at once (any device), on
+    the packets' gathered window rows pw1, pw2 (Np, K) of the two
+    snapshots: the arithmetic of the march kernel. xk (4, Np) =
+    [x, y, kx, ky]; sub_dt a Python float or 0-dim tensor; returns
+    (xk_out (4, Np), overflow (Np,) int32)."""
     _check_spec(spec)
-    if spec.combined_gather:
-        w = pw1.t() if spec.tiles_transposed else pw1          # (2K, Np)
-        p = w.reshape(2, spec.nf, spec.SW, spec.SW, -1)
-        p1, p2 = p[0], p[1]
-    else:
-        if spec.tiles_transposed:
-            pw1 = pw1.t()
-            pw2 = pw2.t()
-        p1 = pw1.reshape(spec.nf, spec.SW, spec.SW, -1)
-        p2 = pw2.reshape(spec.nf, spec.SW, spec.SW, -1)
+    p1 = pw1.t().reshape(spec.nf, spec.SW, spec.SW, -1)
+    p2 = pw2.t().reshape(spec.nf, spec.SW, spec.SW, -1)
     h = torch.as_tensor(sub_dt, dtype=xk.dtype, device=xk.device)
     r = _march_core(p1, p2, xk[0], xk[1], xk[2], xk[3], oi, oj, h, spec)
     return torch.stack(r[:4]), r[4]
@@ -551,17 +519,13 @@ def march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
 
 def march_gathered_reference(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec):
     """Plain version of march_gathered_cuda, the CPU path, and what
-    fused_march_gathered differentiates: gather each packet's window from
-    the two cell-window arrays (build_gather_windows' layout: (ncells, K)
-    rows when spec.tiles_transposed, else (K, ncells)), then
-    march_reference on the two gathered arrays. spec.combined_gather is
-    not read: stacking the two snapshots before one gather and splitting
-    them again gives these same values bit for bit. Returns
-    (xk_out (4, Np), overflow (Np,) int32)."""
+    fused_march_gathered differentiates: gather each packet's row from the
+    two (ncells, K) window arrays (gather_packet_windows), then
+    march_reference on the gathered rows. Returns (xk_out (4, Np),
+    overflow (Np,) int32)."""
     pw1 = gather_packet_windows(win1, oi, oj, spec)
     pw2 = gather_packet_windows(win2, oi, oj, spec)
-    return march_reference(pw1, pw2, xk, oi, oj, sub_dt,
-                           spec._replace(combined_gather=False))
+    return march_reference(pw1, pw2, xk, oi, oj, sub_dt, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -648,16 +612,15 @@ def ring_consumers(spec: MarchSpec, dtype: torch.dtype) -> int:
 
 
 def march_route(spec: MarchSpec, dtype: torch.dtype) -> str:
-    """Which way the march kernel reads its window rows, from the layout
-    and (2K, element size) alone. The (K, Np) layout is always "direct"
-    (every thread reads its own row from device memory as it goes): its
-    loads are coalesced across packets already. The row layouts take
-    "ring" (producer warps of a persistent block copy rows into a ring of
-    shared-memory slots while consumer warps march) where the ring holds
+    """Which way the march kernel reads its window rows, from (2K, element
+    size) alone: "ring" (producer warps of a persistent block copy rows
+    into a ring of shared-memory slots while consumer warps march) where
+    the ring holds
     RING_MIN_CONSUMERS consumer warps beside its spare slots; else
     "staged" (each warp first copies its 32 packets' rows into shared
     memory with coalesced asynchronous copies, then marches them) while
-    one warp's rows fit; else "direct". Staging measured no slower than
+    one warp's rows fit; else "direct" (every thread reads its own row
+    from device memory as it goes). Staging measured no slower than
     per-thread loads even with a single warp resident. The ring's readings
     (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W, ms a call in a run
     of calls, float32, K = 128, 4 consumer warps): the ensemble's launch at
@@ -665,8 +628,7 @@ def march_route(spec: MarchSpec, dtype: torch.dtype) -> str:
     the same run; a single member's at the main shape 0.5535 against
     0.5903 and 0.5862. Both entries read it faster, so both take it.
     A rule on shapes, not a fallback: a launch that fails raises."""
-    if not spec.tiles_transposed:
-        return "direct"
+    _check_spec(spec)
     if ring_consumers(spec, dtype) >= RING_MIN_CONSUMERS:
         return "ring"
     return "staged" if staged_block_limit(spec, dtype) >= 32 else "direct"
@@ -745,13 +707,13 @@ def _count(wrapper, **by):
         getattr(wrapper, counter)[key] += 1
 
 
-def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
-                  sub_dt, spec: MarchSpec, route, consumers=None):
-    """Launch the march kernel for `wrapper` (march_cuda or
-    march_gathered_cuda) on checked arguments (p1, p2: device addresses of
-    the two snapshots' windows), by `route` or, where that is None, by the
-    route march_route gives (on the ring route with `consumers` consumer
-    warps, or ring_consumers'). Adds the launch to `wrapper.launches` and,
+def _launch_march(wrapper, win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec,
+                  route, consumers=None):
+    """Launch the march kernel for `wrapper` (march_gathered_cuda) on
+    checked arguments (win1, win2: the two snapshots' (ncells, K) window
+    arrays), by `route` or, where that is None, by the route march_route
+    gives (on the ring route with `consumers` consumer warps, or
+    ring_consumers'). Adds the launch to `wrapper.launches` and,
     under the route it took, to `wrapper.launches_by_route`. Returns
     (xk_out, overflow)."""
     from .. import kernels
@@ -766,7 +728,7 @@ def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
     name, entry = _march_entry(kernels.load(), route, xk.dtype)
     with torch.cuda.device(xk.device):
         err = entry(
-            p1, p2, s_packet, s_elem, int(gathered),
+            win1.data_ptr(), win2.data_ptr(),
             xk.data_ptr(), oi.data_ptr(), oj.data_ptr(),
             out.data_ptr(), ov.data_ptr(), Np, float(sub_dt),
             spec.nx, spec.ny, 1.0 / spec.dx, 1.0 / spec.dy,
@@ -779,7 +741,7 @@ def _launch_march(wrapper, p1, p2, s_packet, s_elem, gathered, xk, oi, oj,
 
 
 def _require_march_inputs(name, windows, xk, oi, oj, spec: MarchSpec):
-    """The checks both march wrappers make; `windows` as _require_cuda
+    """The checks the march wrappers make; `windows` as _require_cuda
     takes them."""
     _check_spec(spec)
     if xk.dtype not in _DTYPE_CODE:
@@ -791,51 +753,13 @@ def _require_march_inputs(name, windows, xk, oi, oj, spec: MarchSpec):
                   ("oj", oj, torch.int32, (Np,)))
 
 
-def march_cuda(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
-    """The fused march on the card (kernels/csrc/march.cuh) from
-    pre-gathered packet windows: arguments and results as march_reference,
-    CUDA tensors only. One thread per packet, rows read by the route
-    march_route gives; `sub_dt` is passed to the kernel as a scalar.
-    Launches on the current stream and does not synchronise. Counts its
-    launches in `march_cuda.launches`, and by the route each took in
-    `march_cuda.launches_by_route`."""
-    Np = xk.shape[-1]
-    K = spec.K
-    rows = 2 * K if spec.combined_gather else K
-    pw_shape = (Np, rows) if spec.tiles_transposed else (rows, Np)
-    windows = [("pw1", pw1, xk.dtype, pw_shape)]
-    if not spec.combined_gather:
-        windows.append(("pw2", pw2, xk.dtype, pw_shape))
-    _require_march_inputs("march_cuda", windows, xk, oi, oj, spec)
-
-    # Strides in elements: from one packet to the next, and from one
-    # window component to the next. Both layouts are the same kernel.
-    if spec.tiles_transposed:
-        s_packet, s_elem = rows, 1
-    else:
-        s_packet, s_elem = 1, Np
-    p1 = pw1.data_ptr()
-    if spec.combined_gather:
-        p2 = p1 + K * s_elem * pw1.element_size()
-    else:
-        p2 = pw2.data_ptr()
-    return _launch_march(march_cuda, p1, p2, s_packet, s_elem, False, xk, oi,
-                         oj, sub_dt, spec, None)
-
-
-march_cuda.launches = 0
-march_cuda.launches_by_route = dict.fromkeys(_ROUTES, 0)
-
-
 def march_gathered_cuda(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec,
                         route=None, consumers=None):
     """The fused march on the card with the gather inside the kernel
     (kernels/csrc/march.cuh): arguments and results as
-    march_gathered_reference, CUDA tensors only, (ncells, K) window rows
-    only (spec.tiles_transposed; a (K, ncells) array has no contiguous row
-    to read, that layout gathers first and calls march_cuda). A packet
-    reads row oi*ny + oj of win1 and of win2; `oi`, `oj` are trusted to lie
-    in [0, nx) and [0, ny), as packet_cells makes them. Rows are read by
+    march_gathered_reference, CUDA tensors only. A packet reads row
+    oi*ny + oj of win1 and of win2; `oi`, `oj` are trusted to lie in
+    [0, nx) and [0, ny), as packet_cells makes them. Rows are read by
     the route march_route gives; `route` ("staged", "ring" or "direct")
     names one instead, to hold the routes against each other and to time
     them (the results are the same bits; a staged launch whose block does
@@ -845,17 +769,11 @@ def march_gathered_cuda(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec,
     Counts its launches in `march_gathered_cuda.launches`, and by the route
     each took in `march_gathered_cuda.launches_by_route`."""
     name = "march_gathered_cuda"
-    if not spec.tiles_transposed:
-        raise ValueError(
-            f"{name} reads (ncells, K) window rows (tiles_transposed=True); "
-            "for (K, ncells) arrays gather with gather_packet_windows and "
-            "call march_cuda")
     win_shape = (spec.nx * spec.ny, spec.K)
     _require_march_inputs(name, [("win1", win1, xk.dtype, win_shape),
                                  ("win2", win2, xk.dtype, win_shape)],
                           xk, oi, oj, spec)
-    return _launch_march(march_gathered_cuda, win1.data_ptr(),
-                         win2.data_ptr(), spec.K, 1, True, xk, oi, oj, sub_dt,
+    return _launch_march(march_gathered_cuda, win1, win2, xk, oi, oj, sub_dt,
                          spec, route, consumers)
 
 
@@ -888,8 +806,7 @@ def march_gathered_backward_reference(win1, win2, xk, oi, oj, sub_dt, ct_xk,
     """Plain version of march_gathered_backward_cuda: autograd through
     march_gathered_reference on these inputs. Returns (ct_xk_in (4, Np),
     ct_win1, ct_win2), the last two None without need_win."""
-    g = _plain_cotangents(march_gathered_reference, win1, win2, xk, oi, oj,
-                          sub_dt, ct_xk, spec,
+    g = _plain_cotangents(win1, win2, xk, oi, oj, sub_dt, ct_xk, spec,
                           [need_win, need_win, True, False])
     return g[2], g[0], g[1]
 
@@ -916,9 +833,6 @@ def march_gathered_backward_cuda(win1, win2, xk, oi, oj, sub_dt, ct_xk,
     from .. import kernels
 
     name = "march_gathered_backward_cuda"
-    if not spec.tiles_transposed:
-        raise ValueError(f"{name} reads (ncells, K) window rows "
-                         "(tiles_transposed=True)")
     if spec.stepper != "rk23":
         raise ValueError(f"{name} differentiates the rk23 stepper, not "
                          f"{spec.stepper!r}")
@@ -1120,31 +1034,16 @@ def window_transpose(W: torch.Tensor) -> torch.Tensor:
     return _WindowTranspose.apply(W)
 
 
-def _march_forward(ctx, kernel, plain, w1, w2, xk, oi, oj, sub_dt, spec):
-    """Forward of a differentiable march: its kernel on CUDA tensors, its
-    plain version on CPU tensors; the inputs are saved for the backward."""
-    out, ov = (kernel if xk.is_cuda else plain)(w1, w2, xk, oi, oj, sub_dt,
-                                                spec)
-    dt_is_tensor = isinstance(sub_dt, torch.Tensor)
-    ctx.save_for_backward(w1, w2, xk, oi, oj,
-                          *([sub_dt] if dt_is_tensor else []))
-    ctx.sub_dt = None if dt_is_tensor else sub_dt
-    ctx.spec = spec
-    ctx.mark_non_differentiable(ov)
-    return out, ov
-
-
-def _plain_cotangents(plain, w1, w2, xk, oi, oj, sub_dt, ct_xk, spec,
-                      wanted):
+def _plain_cotangents(w1, w2, xk, oi, oj, sub_dt, ct_xk, spec, wanted):
     """Cotangents of (w1, w2, xk, sub_dt), each where `wanted` says, by
-    autograd through the plain march `plain` on these inputs; None for
+    autograd through march_gathered_reference on these inputs; None for
     the others."""
     args = [w1, w2, xk, sub_dt]
     with torch.enable_grad():
         leaves = [a.detach().requires_grad_(True) if w else a
                   for a, w in zip(args, wanted)]
-        out, _ = plain(leaves[0], leaves[1], leaves[2], oi, oj, leaves[3],
-                       spec)
+        out, _ = march_gathered_reference(leaves[0], leaves[1], leaves[2],
+                                          oi, oj, leaves[3], spec)
         diff = [a for a, w in zip(leaves, wanted) if w]
         grads = iter(torch.autograd.grad(out, diff, ct_xk,
                                          allow_unused=True))
@@ -1157,88 +1056,71 @@ def _plain_cotangents(plain, w1, w2, xk, oi, oj, sub_dt, ct_xk, spec,
 _BACKWARD_ROUTES_TAKEN = {"kernel": 0, "plain": 0}
 
 
-def _march_backward(ctx, plain, ct_xk, kernel=None):
-    """Cotangents of a march's inputs (w1, w2, xk, oi, oj, sub_dt, spec)
-    from the saved inputs, inside the span swr.march.backward, by one of
-    two routes chosen by what the backward can see. The kernel route,
-    `kernel` (march_gathered_backward_cuda, which the gathered march
-    passes), where the tensors lie on a CUDA device, the spec reads
-    (ncells, K) rows, the stepper is rk23 with at most
-    BACKWARD_MAX_SUBSTEPS substeps and sub_dt needs no gradient. The
-    plain route otherwise: autograd through the plain version `plain`
-    (CPU tensors, the pre-gathered march, a sub_dt that needs a gradient,
-    rk4 and symplectic). Counts each call by route in
+def _march_backward(ctx, ct_xk):
+    """Cotangents of the march's inputs (win1, win2, xk, oi, oj, sub_dt,
+    spec) from the saved inputs, inside the span swr.march.backward, by
+    one of two routes chosen by what the backward can see. The kernel
+    route, march_gathered_backward_cuda, where the tensors lie on a CUDA
+    device, the stepper is rk23 with at most BACKWARD_MAX_SUBSTEPS
+    substeps and sub_dt needs no gradient. The plain route otherwise:
+    autograd through march_gathered_reference (CPU tensors, a sub_dt that
+    needs a gradient, rk4 and symplectic). Counts each call by route in
     `_march_backward.routes`."""
     w1, w2, xk, oi, oj, *rest = ctx.saved_tensors
     sub_dt = rest[0] if rest else ctx.sub_dt
     needs = ctx.needs_input_grad
     spec = ctx.spec
-    if (kernel is not None and xk.is_cuda and spec.tiles_transposed
-            and spec.stepper == "rk23"
+    if (xk.is_cuda and spec.stepper == "rk23"
             and spec.n_substeps <= BACKWARD_MAX_SUBSTEPS and not needs[5]):
         _BACKWARD_ROUTES_TAKEN["kernel"] += 1
         with span("swr.march.backward"):
-            g_xk, g1, g2 = kernel(w1, w2, xk, oi, oj, sub_dt,
-                                  ct_xk.contiguous(), spec,
-                                  need_win=needs[0] or needs[1])
+            g_xk, g1, g2 = march_gathered_backward_cuda(
+                w1, w2, xk, oi, oj, sub_dt, ct_xk.contiguous(), spec,
+                need_win=needs[0] or needs[1])
         return (g1 if needs[0] else None, g2 if needs[1] else None,
                 g_xk if needs[2] else None, None, None, None, None)
     _BACKWARD_ROUTES_TAKEN["plain"] += 1
     with span("swr.march.backward"):
-        g = _plain_cotangents(plain, w1, w2, xk, oi, oj, sub_dt, ct_xk,
-                              spec, [needs[0], needs[1], needs[2], needs[5]])
+        g = _plain_cotangents(w1, w2, xk, oi, oj, sub_dt, ct_xk, spec,
+                              [needs[0], needs[1], needs[2], needs[5]])
     return g[0], g[1], g[2], None, None, g[3], None
 
 
 _march_backward.routes = _BACKWARD_ROUTES_TAKEN
 
 
-class _FusedMarch(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, *inputs):
-        return _march_forward(ctx, march_cuda, march_reference, *inputs)
-
-    @staticmethod
-    def backward(ctx, ct_xk, _ct_ov):
-        return _march_backward(ctx, march_reference, ct_xk)
-
-
 class _FusedMarchGathered(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, *inputs):
-        return _march_forward(ctx, march_gathered_cuda,
-                              march_gathered_reference, *inputs)
+    def forward(ctx, win1, win2, xk, oi, oj, sub_dt, spec):
+        # the kernel on CUDA tensors, its plain version on CPU tensors; the
+        # inputs are saved for the backward
+        march = march_gathered_cuda if xk.is_cuda else march_gathered_reference
+        out, ov = march(win1, win2, xk, oi, oj, sub_dt, spec)
+        dt_is_tensor = isinstance(sub_dt, torch.Tensor)
+        ctx.save_for_backward(win1, win2, xk, oi, oj,
+                              *([sub_dt] if dt_is_tensor else []))
+        ctx.sub_dt = None if dt_is_tensor else sub_dt
+        ctx.spec = spec
+        ctx.mark_non_differentiable(ov)
+        return out, ov
 
     @staticmethod
     def backward(ctx, ct_xk, _ct_ov):
-        return _march_backward(ctx, march_gathered_reference, ct_xk,
-                               march_gathered_backward_cuda)
+        return _march_backward(ctx, ct_xk)
 
 
 def fused_march_gathered(win1, win2, xk, oi, oj, sub_dt, spec: MarchSpec):
-    """Differentiable fused march from the two cell-window arrays.
+    """Differentiable fused march from the two (ncells, K) window arrays.
     Forward: march_gathered_cuda on CUDA tensors (gather inside the
     kernel), march_gathered_reference on CPU tensors. Backward
     (_march_backward): march_gathered_backward_cuda on CUDA tensors with
-    (ncells, K) rows, the rk23 stepper and a sub_dt that needs no
-    gradient; else autograd through march_gathered_reference on the saved
-    inputs. Either gives gradients for win1 and win2 (summed over the
-    packets that share a cell), xk and, on the plain route, sub_dt (when
-    it is a tensor that needs one), none for oi, oj. Saves the two window
-    arrays, not a gathered copy. Returns (xk_out (4, Np), overflow (Np,)
-    int32)."""
+    the rk23 stepper and a sub_dt that needs no gradient; else autograd
+    through march_gathered_reference on the saved inputs. Either gives
+    gradients for win1 and win2 (summed over the packets that share a
+    cell), xk and, on the plain route, sub_dt (when it is a tensor that
+    needs one), none for oi, oj. Saves the two window arrays, not a
+    gathered copy. Returns (xk_out (4, Np), overflow (Np,) int32)."""
     return _FusedMarchGathered.apply(win1, win2, xk, oi, oj, sub_dt, spec)
-
-
-def fused_march(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
-    """Differentiable fused march. Forward: the CUDA kernel on CUDA
-    tensors, march_reference on CPU tensors. Backward: always
-    differentiates march_reference on the saved inputs (same arithmetic;
-    the cotangent w.r.t. the packet windows is dense per-packet weight
-    outer products — no scatter), giving gradients for pw1, pw2, xk and
-    sub_dt (when it is a tensor), none for oi, oj. Returns
-    (xk_out (4, Np), overflow (Np,) int32)."""
-    return _FusedMarch.apply(pw1, pw2, xk, oi, oj, sub_dt, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -1249,8 +1131,7 @@ def fused_march(pw1, pw2, xk, oi, oj, sub_dt, spec: MarchSpec):
 def march_gathered_batched_reference(win1, win2, xk, oi, oj, sub_dt,
                                      spec: MarchSpec):
     """Plain version of march_gathered_batched_cuda: march_gathered_reference
-    member by member. win1, win2: (E, ncells, K) (or (E, K, ncells) when not
-    spec.tiles_transposed); xk (E, 4, Np); oi, oj (E, Np) int32; sub_dt (E,),
+    member by member. win1, win2: (E, ncells, K); xk (E, 4, Np); oi, oj (E, Np) int32; sub_dt (E,),
     each member's substep length (0 freezes its packets). Returns
     (xk_out (E, 4, Np), overflow (E, Np) int32)."""
     outs = [march_gathered_reference(win1[e], win2[e], xk[e], oi[e], oj[e],
@@ -1265,7 +1146,7 @@ def march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
     """The fused march of every member of an ensemble in ONE launch
     (kernels/csrc/march.cuh, the member on the grid's second axis):
     arguments and results as march_gathered_batched_reference, contiguous
-    CUDA tensors only, (ncells, K) rows only (spec.tiles_transposed).
+    CUDA tensors only.
     `sub_dt` is a float64 (E,) CUDA tensor, read by the kernel and rounded
     to the packets' type as march_gathered_cuda rounds its argument, so a
     member's result is the bits of its single-member launch. Rows are read
@@ -1279,9 +1160,6 @@ def march_gathered_batched_cuda(win1, win2, xk, oi, oj, sub_dt,
     from .. import kernels
 
     name = "march_gathered_batched_cuda"
-    if not spec.tiles_transposed:
-        raise ValueError(f"{name} reads (ncells, K) window rows "
-                         "(tiles_transposed=True)")
     _check_spec(spec)
     if xk.dim() != 3 or xk.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: xk must be float32 or float64 (E, 4, Np), "

@@ -29,10 +29,9 @@ The spans, a layer each, at its boundary in the code:
   swr.windows        one window build (ops/march_window.build_gather_windows:
                      the padded fields' copies and K2 or K3)
   swr.march          the fused march after the window builds: packet_cells,
-                     K1 (or the gathers and the pre-gathered march), the
-                     overflow max
-  swr.march.backward K1's backward, autograd through the plain march, on
-                     autograd's thread; under remat it starts after the
+                     K1, the overflow max
+  swr.march.backward K1's backward, its kernel or autograd through the
+                     plain march, on autograd's thread; under remat it starts after the
                      step's recomputation (inside swr.step again), which
                      reading the march's saved tensors sets off
   swr.frozen         one models/frozen.raytrace_frozen call, either route

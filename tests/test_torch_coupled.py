@@ -27,7 +27,7 @@ RTOL_QK = 1e-10
 
 _MARCH_FIELDS = ("nx", "ny", "dx", "dy", "f", "Cg", "n_substeps", "stepper",
                  "order", "margin", "nf", "tiles_transposed",
-                 "grad_from_interp", "combined_gather", "fused_build")
+                 "grad_from_interp", "fused_build")
 
 
 def _setups(**kw):

@@ -151,27 +151,39 @@ def test_cpu_plain_version_is_autograd_through_the_plain_march():
     assert torch.equal(gx2, gx)
 
 
-@pytest.mark.parametrize("stepper,pregathered", [("rk4", False),
-                                                 ("symplectic", False),
-                                                 ("rk23", True)])
-def test_cpu_other_steppers_and_layouts_stay_plain(stepper, pregathered):
+@pytest.mark.parametrize("stepper,dt_grad", [("rk4", False),
+                                             ("symplectic", False),
+                                             ("rk23", True)])
+def test_cpu_other_steppers_and_layouts_stay_plain(stepper, dt_grad):
+    """rk4, symplectic, and a sub_dt that is a tensor needing a gradient,
+    take the plain route; that sub_dt gets autograd's cotangent through
+    the plain march."""
     spec = _spec(2, 1, stepper=stepper)
     win1, win2, xk, oi, oj, ct = _inputs(spec, 64, seed=4)
-    a = xk.clone().requires_grad_(True)
+
+    def leaves():
+        dt = 0.2 * DX
+        if dt_grad:
+            dt = torch.tensor(dt, dtype=torch.float64, requires_grad=True)
+        return xk.clone().requires_grad_(True), dt
+
+    a, dt = leaves()
     routes, _ = _counts()
-    if pregathered:
-        out, _ = mw.fused_march(mw.gather_packet_windows(win1, oi, oj, spec),
-                                mw.gather_packet_windows(win2, oi, oj, spec),
-                                a, oi, oj, 0.2 * DX, spec)
-    else:
-        out, _ = mw.fused_march_gathered(win1, win2, a, oi, oj, 0.2 * DX,
-                                         spec)
+    out, _ = mw.fused_march_gathered(win1, win2, a, oi, oj, dt, spec)
     (out * ct).sum().backward()
     after, launches = _counts()
     assert after == {"kernel": routes["kernel"],
                      "plain": routes["plain"] + 1}
     assert launches == 0
     assert torch.isfinite(a.grad).all()
+    if dt_grad:
+        b, dt_b = leaves()
+        ref, _ = mw.march_gathered_reference(win1, win2, b, oi, oj, dt_b,
+                                             spec)
+        (ref * ct).sum().backward()
+        assert dt.grad is not None and float(dt.grad) != 0.0
+        assert torch.equal(dt.grad, dt_b.grad)
+        assert torch.equal(a.grad, b.grad)
 
 
 def _cpu_args(spec=None):

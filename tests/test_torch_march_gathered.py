@@ -33,13 +33,16 @@ ATOL = 1e-12
 
 
 def _specs(**kw):
-    """The same march configuration for both packages, (ncells, K) rows."""
+    """The same march configuration for both packages, (ncells, K) rows.
+    `combined_gather` chooses among the JAX package's gather forms and
+    goes to its spec only."""
     common = dict(nx=NX, ny=NX, dx=DX, dy=DX, f=3.0, Cg=1.0, n_substeps=2,
                   tiles_transposed=True)
     common.update(kw)
     common["grad_from_interp"] = common.get("nf", 6) == 2
-    return (jpw.MarchSpec(interpret=True, block=128, **common),
-            tmw.MarchSpec(**common))
+    js = jpw.MarchSpec(interpret=True, block=128, **common)
+    common.pop("combined_gather", None)
+    return js, tmw.MarchSpec(**common)
 
 
 def _state(seed=0, n=NP):
@@ -59,14 +62,20 @@ def _state(seed=0, n=NP):
 
 
 def _jax_gathered(js, F1, F2, x, k):
-    """(pw1, pw2, xk, oi, oj): the JAX package's two row gathers."""
+    """(pw1, pw2, xk, oi, oj): the JAX package's two row gathers or, with
+    js.combined_gather, its one gather of both snapshots' rows stacked
+    (pw2 then a dummy)."""
     F1, F2, x, k = map(to_jax, (F1, F2, x, k))
     W1 = jpw.build_margin_windows(F1, js).T
     W2 = jpw.build_margin_windows(F2, js).T
     oi, oj = jpw.packet_cells(x[0], x[1], js)
+    xk = jnp.concatenate([x, k], axis=0)
+    if js.combined_gather:
+        Wc = jnp.concatenate([W1, W2], axis=1)
+        return (jpw.gather_packet_windows(Wc, oi, oj, js), jnp.zeros((1, 1)),
+                xk, oi, oj)
     return (jpw.gather_packet_windows(W1, oi, oj, js),
-            jpw.gather_packet_windows(W2, oi, oj, js),
-            jnp.concatenate([x, k], axis=0), oi, oj)
+            jpw.gather_packet_windows(W2, oi, oj, js), xk, oi, oj)
 
 
 def _torch_windows(ts, F1, F2, x, k):
@@ -127,51 +136,64 @@ def test_gathered_forced_overflow_and_freeze(stepper):
 
 
 # ---------------------------------------------------------------------------
-# (b) bit equality with the port's pre-gathered route
+# (b) every gather form of the JAX package, and the one layout
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("combined", [True, False])
+@pytest.mark.parametrize("form", ["split", "combined"])
 @pytest.mark.parametrize("stepper", ["rk23", "rk4", "symplectic"])
-def test_gathered_reference_equals_pregathered_bits(stepper, combined):
-    """Stacking the two snapshots before one gather and splitting them
-    again moves no bit, so the gathered march equals the pre-gathered one
-    for either value of combined_gather; and spec.combined_gather is not
-    read by the gathered entry."""
-    _, ts = _specs(stepper=stepper, nf=2, margin=2, combined_gather=combined)
-    win1, win2, xk, oi, oj = _torch_windows(ts, *_state(seed=2))
+def test_gathered_reference_matches_jax_gather_forms(stepper, form):
+    """The port's plain version on the two (ncells, K) window arrays
+    against JAX's march_reference after its two row gathers and after its
+    one gather of both snapshots stacked on the window axis (float64)."""
+    js, ts = _specs(stepper=stepper, nf=2, margin=2,
+                    combined_gather=form == "combined")
+    state = _state(seed=2)
     sub_dt = 0.2 * DX
-    if combined:
-        pwc = tmw.gather_packet_windows(torch.cat([win1, win2], dim=-1),
-                                        oi, oj, ts)
-        want, ov_want = tmw.march_reference(
-            pwc, torch.zeros((1, 1), dtype=xk.dtype), xk, oi, oj, sub_dt, ts)
-    else:
-        want, ov_want = tmw.march_reference(
-            tmw.gather_packet_windows(win1, oi, oj, ts),
-            tmw.gather_packet_windows(win2, oi, oj, ts), xk, oi, oj, sub_dt,
-            ts)
-    got, ov = tmw.march_gathered_reference(win1, win2, xk, oi, oj, sub_dt,
-                                           ts)
-    assert torch.equal(got, want) and torch.equal(ov, ov_want)
-    other, _ = tmw.march_gathered_reference(
-        win1, win2, xk, oi, oj, sub_dt,
-        ts._replace(combined_gather=not combined))
-    assert torch.equal(other, got)
+    want, ov_want = jpw.march_reference(*_jax_gathered(js, *state), sub_dt,
+                                        js)
+    got, ov = tmw.march_gathered_reference(*_torch_windows(ts, *state),
+                                           sub_dt, ts)
+    assert_close(got, want, atol=ATOL)
+    assert_equal(ov, ov_want)
+    assert float((got[:2] - to_torch(state[2])).abs().max()) > 0
 
 
-def test_gathered_reference_takes_the_column_layout_too():
-    """(K, ncells) arrays: the plain version gathers columns. Same values;
-    the window sums run over another memory order, so not the same bits."""
-    _, ts = _specs(nf=6, margin=1)
-    win1, win2, xk, oi, oj = _torch_windows(ts, *_state(seed=4))
-    want, ov_want = tmw.march_gathered_reference(win1, win2, xk, oi, oj,
-                                                 0.1 * DX, ts)
+def _column_layout_calls():
+    """Each entry that takes a spec, called with tiles_transposed=False."""
+    _, ts = _specs(nf=2, margin=1)
     cols = ts._replace(tiles_transposed=False)
-    got, ov = tmw.march_gathered_reference(
-        win1.t().contiguous(), win2.t().contiguous(), xk, oi, oj, 0.1 * DX,
-        cols)
-    assert_close(got, to_numpy(want), atol=1e-13)
-    assert torch.equal(ov, ov_want)
+    F1, F2, x, k = _state(seed=4)
+    win1, win2, xk, oi, oj = _torch_windows(ts, F1, F2, x, k)
+    cfg = tc2.Coupled2Config(**_SMALL)
+
+    def carry_windows():
+        s, carry = tc2.setup_coupled2(cfg, device="cpu", dtype=torch.float64)
+        assert carry.prev_win is None
+        return tcp.prepare_carry_windows(
+            carry, False, s.march._replace(tiles_transposed=False), 1)
+
+    return {
+        "march_gathered_reference": lambda: tmw.march_gathered_reference(
+            win1, win2, xk, oi, oj, 0.1 * DX, cols),
+        "fused_march_gathered": lambda: tmw.fused_march_gathered(
+            win1, win2, xk, oi, oj, 0.1 * DX, cols),
+        "build_gather_windows": lambda: tmw.build_gather_windows(
+            to_torch(F1), cols),
+        "prepare_carry_windows": carry_windows,
+        "march_route": lambda: tmw.march_route(cols, torch.float32),
+    }
+
+
+@pytest.mark.parametrize("entry", ["march_gathered_reference",
+                                   "fused_march_gathered",
+                                   "build_gather_windows",
+                                   "prepare_carry_windows", "march_route"])
+def test_entries_refuse_the_column_layout(entry):
+    """The march reads (ncells, K) window rows only: every entry that
+    takes a spec refuses tiles_transposed=False and says so."""
+    call = _column_layout_calls()[entry]
+    with pytest.raises(ValueError, match=r"\(ncells, K\) window rows only"):
+        call()
 
 
 # ---------------------------------------------------------------------------
@@ -228,16 +250,16 @@ def test_fused_march_gathered_gradients(nf, stepper):
 
 def test_fused_march_gathered_gradient_only_where_asked():
     """A float sub_dt and window arrays that need no gradient: only xk's
-    cotangent is formed, and it equals the pre-gathered route's."""
+    cotangent is formed, and it equals autograd's through the plain
+    version."""
     _, ts = _specs(nf=2, margin=1, n_substeps=1)
     win1, win2, xk, oi, oj = _torch_windows(ts, *_state(seed=9))
     a = xk.clone().requires_grad_(True)
     out, _ = tmw.fused_march_gathered(win1, win2, a, oi, oj, 0.1 * DX, ts)
     _loss_t(out).backward()
     b = xk.clone().requires_grad_(True)
-    out_b, _ = tmw.fused_march(tmw.gather_packet_windows(win1, oi, oj, ts),
-                               tmw.gather_packet_windows(win2, oi, oj, ts),
-                               b, oi, oj, 0.1 * DX, ts)
+    out_b, _ = tmw.march_gathered_reference(win1, win2, b, oi, oj, 0.1 * DX,
+                                            ts)
     _loss_t(out_b).backward()
     assert torch.equal(a.grad, b.grad)
     assert win1.grad is None and win2.grad is None
@@ -285,8 +307,7 @@ def test_lockstep_same_bits_for_either_combined_gather(model, monkeypatch):
     s, carry, px, pk, cats = _run(model, monkeypatch,
                                   march_combined_gather=True)
     s2, carry2, px2, pk2, _ = _run(model, march_combined_gather=False)
-    assert s.march.combined_gather and not s2.march.combined_gather
-    assert s.march.tiles_transposed
+    assert s.march == s2.march
     assert torch.equal(px, px2) and torch.equal(pk, pk2)
     assert torch.equal(carry.flow_state.qk, carry2.flow_state.qk)
     assert int(carry.overflow) == int(carry2.overflow) == 0
@@ -294,24 +315,6 @@ def test_lockstep_same_bits_for_either_combined_gather(model, monkeypatch):
     win = tuple(carry.prev_win.shape)
     assert win == (32 * 32, s.march.K)
     assert cats and not any(win in shapes for shapes in cats)
-
-
-@pytest.mark.parametrize("combined", [True, False])
-def test_lockstep_column_layout_keeps_its_gathers(combined):
-    """A hand-made spec with (K, ncells) windows still gathers first (one
-    gather or two) and reaches the same values (the window sums run over
-    another memory order: 1e-13)."""
-    cfg = tc2.Coupled2Config(**_SMALL)
-    s, carry0 = tc2.setup_coupled2(cfg, device="cpu", dtype=torch.float64)
-    want = tc2.coupled2_flow_packet_step(carry0, s, cfg)
-    cols = s._replace(march=s.march._replace(tiles_transposed=False,
-                                             combined_gather=combined))
-    before = tmw.gather_packet_windows.calls
-    got = tc2.coupled2_flow_packet_step(carry0, cols, cfg)
-    assert tmw.gather_packet_windows.calls - before == (1 if combined else 2)
-    assert_close(got.packet_x, to_numpy(want.packet_x), atol=1e-13)
-    assert_close(got.packet_k, to_numpy(want.packet_k), atol=1e-13)
-    assert float((got.packet_x - carry0.packet_x).abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -354,9 +357,9 @@ def test_staged_launch_refuses_a_block_that_does_not_fit():
     build."""
     _, ts = _specs(nf=2, margin=1)
     xk = torch.zeros((4, 8), dtype=torch.float32)
+    win = torch.zeros((NX * NX, ts.K), dtype=torch.float32)
     cells = torch.zeros((8,), dtype=torch.int32)
-    launch = (tmw.march_gathered_cuda, 0, 0, ts.K, 1, True, xk, cells, cells,
-              0.1)
+    launch = (tmw.march_gathered_cuda, win, win, xk, cells, cells, 0.1)
     with pytest.raises(ValueError, match="at most 224"):
         tmw._launch_march(*launch, ts._replace(block=256), "staged")
     with pytest.raises(ValueError, match="multiple of 32"):
@@ -382,23 +385,20 @@ def test_shared_memory_size_is_the_kernel_source_s():
 # (f) the route rule
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("nf,margin,dtype,transposed,route", [
-    (2, 1, torch.float32, True, "ring"),      # both coupled main paths
-    (2, 2, torch.float32, True, "staged"),
-    (6, 1, torch.float32, True, "staged"),    # two warps' rows an SM
-    (2, 1, torch.float64, True, "staged"),    # three
-    (6, 2, torch.float32, True, "staged"),    # 154 KB a warp: one
-    (6, 2, torch.float64, True, "direct"),    # 307 KB a warp: fits nowhere
-    (2, 1, torch.float32, False, "direct"),   # (K, Np): coalesced already
+@pytest.mark.parametrize("nf,margin,dtype,route", [
+    (2, 1, torch.float32, "ring"),      # both coupled main paths
+    (2, 2, torch.float32, "staged"),
+    (6, 1, torch.float32, "staged"),    # two warps' rows an SM
+    (2, 1, torch.float64, "staged"),    # three
+    (6, 2, torch.float32, "staged"),    # 154 KB a warp: one
+    (6, 2, torch.float64, "direct"),    # 307 KB a warp: fits nowhere
 ])
-def test_march_route(nf, margin, dtype, transposed, route):
+def test_march_route(nf, margin, dtype, route):
     spec = tmw.MarchSpec(nx=512, ny=512, dx=DX, dy=DX, f=3.0, Cg=1.0, nf=nf,
-                         margin=margin, grad_from_interp=nf == 2,
-                         tiles_transposed=transposed)
+                         margin=margin, grad_from_interp=nf == 2)
     assert tmw.march_route(spec, dtype) == route
-    # the rule reads (2K, element size) and the layout, nothing else
+    # the rule reads (2K, element size), nothing else
     assert tmw.march_route(spec._replace(nx=64, ny=48, block=32,
-                                         combined_gather=True,
                                          stepper="rk4"), dtype) == route
     warp_bytes = 32 * (2 * spec.K + 1) * (4 if dtype == torch.float32 else 8)
     assert tmw.staged_warp_bytes(spec, dtype) == warp_bytes
@@ -406,5 +406,4 @@ def test_march_route(nf, margin, dtype, transposed, route):
     assert limit == min(256, 32 * (tmw.SMEM_PER_SM // warp_bytes))
     # the default block fits wherever the rule says staged or ring (whose
     # rows fit a warp of the staged route too), and only there
-    assert (spec.block <= limit) == (route in ("staged", "ring")
-                                     or not transposed)
+    assert (spec.block <= limit) == (route in ("staged", "ring"))

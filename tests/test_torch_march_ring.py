@@ -88,11 +88,12 @@ def test_ring_consumers(nf, margin, dtype, consumers):
 def test_march_route_on_the_timed_shapes(nf, margin, dtype, route):
     spec = _spec(nf, margin)
     assert tmw.march_route(spec, dtype) == route
-    # the rule reads the layout and (2K, element size), nothing else
+    # the rule reads (2K, element size), nothing else
     assert tmw.march_route(spec._replace(nx=64, ny=48, block=64,
                                          stepper="rk4"), dtype) == route
-    assert tmw.march_route(spec._replace(tiles_transposed=False),
-                           dtype) == "direct"
+    # and takes (ncells, K) rows only
+    with pytest.raises(ValueError, match=r"\(ncells, K\) window rows only"):
+        tmw.march_route(spec._replace(tiles_transposed=False), dtype)
 
 
 @pytest.mark.parametrize("nf,margin,dtype,K,slots", SLOTS)
@@ -124,11 +125,16 @@ def test_checked_route_ring(nf, margin, dtype, K, slots):
         tmw._checked_route(name, spec._replace(block=48), dtype, "ring")
 
 
-@pytest.mark.parametrize("wrapper", [tmw.march_cuda, tmw.march_gathered_cuda,
-                                     tmw.march_gathered_batched_cuda],
-                         ids=lambda w: w.__name__)
-def test_wrappers_count_ring_launches(wrapper):
-    assert set(wrapper.launches_by_route) == {"staged", "direct", "ring"}
+@pytest.mark.parametrize("wrapper,routes", [
+    (tmw.march_gathered_cuda, {"staged", "direct", "ring"}),
+    (tmw.march_gathered_batched_cuda, {"staged", "direct", "ring"}),
+    (tmw.march_gathered_backward_cuda, {"staged", "direct"}),
+], ids=["march_gathered_cuda", "march_gathered_batched_cuda",
+        "march_gathered_backward_cuda"])
+def test_wrappers_count_ring_launches(wrapper, routes):
+    """Each march wrapper counts its launches by route; the backward has
+    no ring route."""
+    assert set(wrapper.launches_by_route) == routes
 
 
 def _cpu_args(wrapper, spec, dtype=torch.float32, E=2, Np=40):
@@ -139,24 +145,26 @@ def _cpu_args(wrapper, spec, dtype=torch.float32, E=2, Np=40):
         return (zeros(E, ncells, K), zeros(E, ncells, K), zeros(E, 4, Np),
                 cells(E, Np), cells(E, Np),
                 torch.full((E,), 0.1, dtype=torch.float64))
-    if wrapper is tmw.march_gathered_cuda:
-        return (zeros(ncells, K), zeros(ncells, K), zeros(4, Np),
-                cells(Np), cells(Np), 0.1)
-    return (zeros(Np, K), zeros(Np, K), zeros(4, Np), cells(Np), cells(Np),
-            0.1)
+    return (zeros(ncells, K), zeros(ncells, K), zeros(4, Np), cells(Np),
+            cells(Np), 0.1)
 
 
-@pytest.mark.parametrize("wrapper", [tmw.march_cuda, tmw.march_gathered_cuda,
-                                     tmw.march_gathered_batched_cuda],
-                         ids=lambda w: w.__name__)
-def test_ring_entries_refuse_cpu_tensors(wrapper):
+_NAMED_RING = {"route": "ring", "consumers": 4}
+
+
+@pytest.mark.parametrize("wrapper,kw", [
+    pytest.param(tmw.march_gathered_cuda, {}, id="march_gathered_cuda_rule"),
+    pytest.param(tmw.march_gathered_cuda, _NAMED_RING,
+                 id="march_gathered_cuda"),
+    pytest.param(tmw.march_gathered_batched_cuda, _NAMED_RING,
+                 id="march_gathered_batched_cuda"),
+])
+def test_ring_entries_refuse_cpu_tensors(wrapper, kw):
     """On CPU tensors a ring launch (named, or the rule's at the main
     shape) raises before any build and counts nothing."""
     spec = _spec(2, 1)._replace(nx=16, ny=16)
     assert tmw.march_route(spec, torch.float32) == "ring"
     before = dict(wrapper.launches_by_route)
-    kw = {} if wrapper is tmw.march_cuda else {"route": "ring",
-                                                "consumers": 4}
     with pytest.raises(ValueError, match="launches a CUDA kernel"):
         wrapper(*_cpu_args(wrapper, spec), spec, **kw)
     assert wrapper.launches_by_route == before

@@ -25,12 +25,15 @@ ATOL = 1e-12
 
 
 def _specs(**kw):
-    """The same march configuration for both packages."""
+    """The same march configuration for both packages. `combined_gather`
+    and `tiles_transposed` choose among the JAX package's gather forms and
+    go to its spec only: the port's march reads (ncells, K) rows only."""
     common = dict(nx=NX, ny=NX, dx=DX, dy=DX, f=3.0, Cg=1.0)
     common.update(kw)
     jkw = dict(common, block=NP)
     interpret = jkw.pop("interpret", False)
-    common.pop("interpret", None)
+    for key in ("interpret", "combined_gather", "tiles_transposed"):
+        common.pop(key, None)
     return (jpw.MarchSpec(interpret=interpret, **jkw),
             tmw.MarchSpec(**common))
 
@@ -63,18 +66,13 @@ def _jax_inputs(spec, F1, F2, x, k):
 
 
 def _torch_inputs(spec, F1, F2, x, k):
-    """The same through the port's own window build and gather."""
+    """(win1, win2, xk, oi, oj) through the port's own window build: the
+    two (ncells, K) window arrays, which the march reads by cell."""
     F1, F2, x, k = map(to_torch, (F1, F2, x, k))
-    W1 = tmw.build_gather_windows(F1, spec)
-    W2 = tmw.build_gather_windows(F2, spec)
     oi, oj = tmw.packet_cells(x[0], x[1], spec)
-    xk = torch.cat([x, k], dim=0)
-    if spec.combined_gather:
-        Wc = torch.cat([W1, W2], dim=-1 if spec.tiles_transposed else 0)
-        return (tmw.gather_packet_windows(Wc, oi, oj, spec),
-                torch.zeros((1, 1), dtype=xk.dtype), xk, oi, oj)
-    return (tmw.gather_packet_windows(W1, oi, oj, spec),
-            tmw.gather_packet_windows(W2, oi, oj, spec), xk, oi, oj)
+    return (tmw.build_gather_windows(F1, spec),
+            tmw.build_gather_windows(F2, spec), torch.cat([x, k], dim=0),
+            oi, oj)
 
 
 # ---------------------------------------------------------------------------
@@ -94,15 +92,12 @@ def test_build_gather_windows_layouts_and_limits():
     _, ts = _specs(margin=1)
     F1 = to_torch(_state()[0])
     W = tmw.build_margin_windows(F1, ts)
-    assert_equal(tmw.build_gather_windows(F1, ts), to_numpy(W))
-    tr = tmw.build_gather_windows(F1, ts._replace(tiles_transposed=True))
-    assert tr.is_contiguous()
+    tr = tmw.build_gather_windows(F1, ts)
+    assert tr.shape == (NX * NX, ts.K) and tr.is_contiguous()
     assert_equal(tr, to_numpy(W).T)
-    # the one-pass build: same rows, and only with transposed tiles
-    fused = ts._replace(fused_build=True)
-    assert_equal(tmw.build_gather_windows(F1, fused), to_numpy(W))
-    assert_equal(tmw.build_gather_windows(
-        F1, fused._replace(tiles_transposed=True)), to_numpy(W).T)
+    # the one-pass build: the same rows
+    assert_equal(tmw.build_gather_windows(F1, ts._replace(fused_build=True)),
+                 to_numpy(W).T)
     for build in (tmw.build_margin_windows, tmw.build_windows_reference,
                   tmw.build_windows_fused):
         with pytest.raises(ValueError, match="exceeds"):
@@ -198,16 +193,17 @@ def test_packet_cells_equal_with_edges():
 
 @pytest.mark.parametrize("transposed", [False, True])
 def test_gather_packet_windows_equal(transposed):
+    """The port's row gather from (ncells, K) rows against the JAX
+    package's gather of columns (K, ncells) or of rows."""
     js, ts = _specs(tiles_transposed=transposed)
     F1, _, x, _ = _state()
     W = jpw.build_margin_windows(to_jax(F1), js)
-    W = W.T if transposed else W
     oi, oj = jpw.packet_cells(to_jax(x[0]), to_jax(x[1]), js)
-    want = jpw.gather_packet_windows(W, oi, oj, js)
-    got = tmw.gather_packet_windows(to_torch(W), to_torch(oi), to_torch(oj),
-                                    ts)
-    assert got.shape == ((NP, ts.K) if transposed else (ts.K, NP))
-    assert_equal(got, want)
+    want = jpw.gather_packet_windows(W.T if transposed else W, oi, oj, js)
+    got = tmw.gather_packet_windows(to_torch(W.T), to_torch(oi),
+                                    to_torch(oj), ts)
+    assert got.shape == (NP, ts.K)
+    assert_equal(got, want if transposed else want.T)
 
 
 # ---------------------------------------------------------------------------
@@ -237,14 +233,16 @@ def test_march_reference_matches_jax(stepper, nf, combined, transposed):
     state = _state()
     sub_dt = 0.2 * DX
     want, ov_want = jpw.march_reference(*_jax_inputs(js, *state), sub_dt, js)
-    tin = _torch_inputs(ts, *state)
-    got, ov = tmw.march_reference(*tin, sub_dt, ts)
+    win1, win2, xk, oi, oj = tin = _torch_inputs(ts, *state)
+    got, ov = tmw.march_reference(tmw.gather_packet_windows(win1, oi, oj, ts),
+                                  tmw.gather_packet_windows(win2, oi, oj, ts),
+                                  xk, oi, oj, sub_dt, ts)
     assert_close(got, want, atol=ATOL)
     assert ov.dtype == torch.int32
     assert_equal(ov, ov_want)
     assert int(ov.max()) == 0
     # the differentiable entry point takes the same path on a CPU tensor
-    fused, ov_f = tmw.fused_march(*tin, sub_dt, ts)
+    fused, ov_f = tmw.fused_march_gathered(*tin, sub_dt, ts)
     assert_equal(fused, to_numpy(got))
     assert_equal(ov_f, to_numpy(ov))
 
@@ -261,14 +259,15 @@ def test_march_matches_pallas_interpret(stepper, transposed):
     sub_dt = 0.1 * DX
     jin = _jax_inputs(js, *state)
     want, ov_want = jax.jit(lambda *a: jpw.march_pallas(*a, js))(*jin, sub_dt)
-    got, ov = tmw.fused_march(*_torch_inputs(ts, *state), sub_dt, ts)
+    got, ov = tmw.fused_march_gathered(*_torch_inputs(ts, *state), sub_dt,
+                                       ts)
     assert_close(got, want, atol=ATOL)
     assert_equal(ov, ov_want)
 
 
 @pytest.mark.parametrize("nf", [2, 6])
 def test_march_matches_pallas_interpret_combined(nf):
-    """The main path's layout (combined gather, transposed tiles, uv
+    """The JAX main path's layout (combined gather, transposed tiles, uv
     windows) against march_pallas in interpret mode."""
     js, ts = _specs(stepper="rk23", margin=1, interpret=True,
                     tiles_transposed=True, combined_gather=True, nf=nf,
@@ -277,7 +276,8 @@ def test_march_matches_pallas_interpret_combined(nf):
     sub_dt = 0.1 * DX
     jin = _jax_inputs(js, *state)
     want, ov_want = jax.jit(lambda *a: jpw.march_pallas(*a, js))(*jin, sub_dt)
-    got, ov = tmw.fused_march(*_torch_inputs(ts, *state), sub_dt, ts)
+    got, ov = tmw.fused_march_gathered(*_torch_inputs(ts, *state), sub_dt,
+                                       ts)
     assert_close(got, want, atol=ATOL)
     assert_equal(ov, ov_want)
 
@@ -291,7 +291,8 @@ def test_forced_overflow_equal(stepper):
     state = _state()
     sub_dt = 5.0 * DX
     want, ov_want = jpw.march_reference(*_jax_inputs(js, *state), sub_dt, js)
-    got, ov = tmw.march_reference(*_torch_inputs(ts, *state), sub_dt, ts)
+    got, ov = tmw.march_gathered_reference(*_torch_inputs(ts, *state), sub_dt,
+                                           ts)
     assert int(ov.max()) > 0
     assert_equal(ov, ov_want)
     assert_close(got, want, atol=1e-10)  # |x| has grown to O(100)
@@ -311,8 +312,8 @@ def test_mod_floor_edges_in_march():
     for sub_dt in (0.0, 0.1 * DX):
         want, ov_want = jpw.march_reference(
             *_jax_inputs(js, F1, F2, x, k), sub_dt, js)
-        got, ov = tmw.march_reference(*_torch_inputs(ts, F1, F2, x, k),
-                                      sub_dt, ts)
+        got, ov = tmw.march_gathered_reference(
+            *_torch_inputs(ts, F1, F2, x, k), sub_dt, ts)
         assert_close(got, want, atol=ATOL)
         assert_equal(ov, ov_want)
     assert int(ov.max()) == 0
@@ -323,7 +324,8 @@ def test_freeze_is_identity(stepper):
     _, ts = _specs(stepper=stepper, nf=2, grad_from_interp=True,
                    combined_gather=True, tiles_transposed=True)
     F1, F2, x, k = _state()
-    out, ov = tmw.fused_march(*_torch_inputs(ts, F1, F2, x, k), 0.0, ts)
+    out, ov = tmw.fused_march_gathered(*_torch_inputs(ts, F1, F2, x, k), 0.0,
+                                       ts)
     assert_equal(out[:2], x)   # bit for bit
     assert_equal(out[2:], k)
     assert int(ov.max()) == 0
@@ -333,9 +335,10 @@ def test_bad_specs_raise():
     _, ts = _specs()
     tin = _torch_inputs(ts, *_state())
     with pytest.raises(ValueError, match="nf"):
-        tmw.march_reference(*tin, 0.1, ts._replace(grad_from_interp=True))
+        tmw.march_gathered_reference(*tin, 0.1,
+                                     ts._replace(grad_from_interp=True))
     with pytest.raises(ValueError, match="stepper"):
-        tmw.march_reference(*tin, 0.1, ts._replace(stepper="euler"))
+        tmw.march_gathered_reference(*tin, 0.1, ts._replace(stepper="euler"))
 
 
 # ---------------------------------------------------------------------------
@@ -380,9 +383,10 @@ def _loss_t(out):
 
 def test_fused_march_gradients_split():
     """Gradients w.r.t. both field stacks, positions and wavevectors
-    through window build, transpose, gather and march, against jax.grad of
-    the JAX custom-VJP path (Pallas forward in interpret mode). Sums of
-    O(100) float64 terms per entry: rtol 1e-9."""
+    through window build, transpose and the march that reads its rows by
+    cell, against jax.grad of JAX's window build, gather and march (its
+    custom-VJP path, Pallas forward in interpret mode). Sums of O(100)
+    float64 terms per entry: rtol 1e-9."""
     js, ts = _specs(margin=2, interpret=True, tiles_transposed=True,
                     n_substeps=1)
     F1, F2, x, k = _state()
@@ -406,9 +410,8 @@ def test_fused_march_gradients_split():
     W1 = tmw.build_gather_windows(tF1, ts)
     W2 = tmw.build_gather_windows(tF2, ts)
     oi, oj = tmw.packet_cells(tx[0], tx[1], ts)
-    out, ov = tmw.fused_march(tmw.gather_packet_windows(W1, oi, oj, ts),
-                              tmw.gather_packet_windows(W2, oi, oj, ts),
-                              torch.cat([tx, tk]), oi, oj, sub_dt, ts)
+    out, ov = tmw.fused_march_gathered(W1, W2, torch.cat([tx, tk]), oi, oj,
+                                       sub_dt, ts)
     assert not ov.requires_grad
     _loss_t(out).backward()
     for leaf, w, name in zip(leaves, want, "F1 F2 x k".split()):
@@ -416,7 +419,7 @@ def test_fused_march_gradients_split():
 
 
 def test_fused_march_gradients_uv_combined_and_dt():
-    """The main path's mode (uv windows + combined gather): gradients
+    """uv windows against the JAX main path's combined gather: gradients
     w.r.t. the fields, xk and the substep length."""
     js, ts = _specs(margin=2, interpret=True, tiles_transposed=True, nf=2,
                     grad_from_interp=True, combined_gather=True,
@@ -441,11 +444,9 @@ def test_fused_march_gradients_uv_combined_and_dt():
     tF1, tF2, txk = (to_torch(a).requires_grad_(True) for a in (F1, F2, xk))
     tdt = torch.tensor(sub_dt, dtype=torch.float64, requires_grad=True)
     toi, toj = to_torch(joi), to_torch(joj)
-    Wc = torch.cat([tmw.build_gather_windows(tF1, ts),
-                    tmw.build_gather_windows(tF2, ts)], dim=-1)
-    pwc = tmw.gather_packet_windows(Wc, toi, toj, ts)
-    out, _ = tmw.fused_march(pwc, torch.zeros((1, 1), dtype=torch.float64),
-                             txk, toi, toj, tdt, ts)
+    out, _ = tmw.fused_march_gathered(tmw.build_gather_windows(tF1, ts),
+                                      tmw.build_gather_windows(tF2, ts),
+                                      txk, toi, toj, tdt, ts)
     _loss_t(out).backward()
     for leaf, w, name in zip((tF1, tF2, txk, tdt), want,
                              "F1 F2 xk sub_dt".split()):
@@ -460,12 +461,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     _, ts = _specs()
     tin = _torch_inputs(ts, *_state())
     with pytest.raises(ValueError, match="CUDA"):
-        tmw.march_cuda(*tin, 0.1, ts)
+        tmw.march_gathered_cuda(*tin, 0.1, ts)
     with pytest.raises(ValueError, match="CUDA"):
         tmw.transpose_cuda(torch.zeros(4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         tmw.build_windows_cuda(torch.zeros(6, NX, NX, dtype=torch.float64),
                                ts)
-    assert tmw.march_cuda.launches == 0
+    assert tmw.march_gathered_cuda.launches == 0
     assert tmw.transpose_cuda.launches == 0
     assert tmw.build_windows_cuda.launches == 0

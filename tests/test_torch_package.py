@@ -176,19 +176,20 @@ def test_cuda_kernels_unreachable_from_cpu_tensors():
     F = torch.randn(6, 16, 16, dtype=torch.float64, generator=g)
     x = 16 * torch.rand(2, 10, dtype=torch.float64, generator=g)
     k = torch.randn(2, 10, dtype=torch.float64, generator=g)
-    W = mw.build_gather_windows(F, spec)
+    W = mw.build_margin_windows(F, spec)
+    win = mw.build_gather_windows(F, spec)
     oi, oj = mw.packet_cells(x[0], x[1], spec)
-    pw = mw.gather_packet_windows(W, oi, oj, spec)
     xk = torch.cat([x, k])
-    out, ov = mw.fused_march(pw, pw, xk, oi, oj, 0.01, spec)
-    ref, _ = mw.march_reference(pw, pw, xk, oi, oj, 0.01, spec)
+    out, ov = mw.fused_march_gathered(win, win, xk, oi, oj, 0.01, spec)
+    ref, _ = mw.march_gathered_reference(win, win, xk, oi, oj, 0.01, spec)
     assert torch.equal(out, ref)
     assert torch.equal(mw.window_transpose(W), W.t().contiguous())
+    assert torch.equal(win, W.t())
     with pytest.raises(ValueError, match="CUDA"):
-        mw.march_cuda(pw, pw, xk, oi, oj, 0.01, spec)
+        mw.march_gathered_cuda(win, win, xk, oi, oj, 0.01, spec)
     with pytest.raises(ValueError, match="CUDA"):
         mw.transpose_cuda(W)
-    fused = spec._replace(tiles_transposed=True, fused_build=True)
+    fused = spec._replace(fused_build=True)
     assert torch.equal(mw.build_gather_windows(F, fused), W.t())
     with pytest.raises(ValueError, match="CUDA"):
         mw.build_windows_cuda(F, fused)
@@ -199,7 +200,7 @@ def test_cuda_kernels_unreachable_from_cpu_tensors():
     assert torch.equal(xN, ref[0]) and torch.equal(kN, ref[1])
     with pytest.raises(ValueError, match="CUDA"):
         mr.march_rays_cuda(F, x, k, grid, disp, 0.01, 3)
-    assert mw.march_cuda.launches == 0 and mw.transpose_cuda.launches == 0
+    assert mw.transpose_cuda.launches == 0
     assert mw.march_gathered_cuda.launches == 0
     assert mw.build_windows_cuda.launches == 0
     assert mr.march_rays_cuda.launches == 0

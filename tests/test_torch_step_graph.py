@@ -93,8 +93,7 @@ def _routes_since(before):
 # the lock-step's kernel wrappers, and their kernels by name in a device
 # trace
 WRAPPERS = {"march": mw.march_gathered_cuda, "transpose": mw.transpose_cuda,
-            "build_windows": mw.build_windows_cuda,
-            "march_pregathered": mw.march_cuda}
+            "build_windows": mw.build_windows_cuda}
 KERNELS = {"march": r"\bmarch(_ring)?_kernel\b",
            "transpose": r"\btranspose_kernel\b",
            "build_windows": r"\bbuild_windows_kernel\b"}
