@@ -16,18 +16,22 @@ once on the CPU at a small size and compares them (the per-stage packet path
 too), then drives the main paths at full width, each with the launch counts
 set to 0 just before it and read just after (the wrappers count the
 launches that run when they are made; the chunks that replay a captured
-graph call none, and graph_path counts their kernels in a device trace):
+graph call none, and graph_path counts their kernels in a device trace;
+beside them each phase prints build_gather_windows.routes, the window
+builds by route: on the card a build that needs no gradient is one pass,
+K3, whatever march_fused_build says, so every forward path below builds
+its windows with K3 and a K2 runs only where a build needs a gradient):
 
   main_path      the two-layer coupled model at 512^2 with 2^20 wave
                  packets, rk23 with 2 substeps, uv windows, (ncells, K)
                  window rows read by cell inside the march kernel, float32
-                 (march + transpose);
-  main_path_qg1  the one-layer coupled model at the same size with the
-                 one-kernel window build (march + build_windows);
+                 (march + build_windows);
+  main_path_qg1  the one-layer coupled model at the same size, its config
+                 naming the one-pass build (march + build_windows);
   graph_path     the two-layer chunk loop's two routes, the eager loop
                  and one captured CUDA graph a save replayed, at 2^20 and
                  2^16 packets: ms a flow step on the card and on the
-                 host's clock, the same bits, and a chunk's K1 and K2
+                 host's clock, the same bits, and a chunk's K1 and K3
                  records in a device trace against the eager loop's
                  wrapper counts (a replay calls no wrapper);
   frozen_path    2^20 packets marched 50 symplectic steps through a frozen
@@ -40,9 +44,9 @@ graph call none, and graph_path counts their kernels in a device trace):
                  run.log and metrics;
   driver_path    the two-layer production driver in diagnostic mode (omega
                  histograms on the card), 150 flow steps with a checkpoint
-                 every 2 chunks (march + transpose once a flow step); then
-                 100 steps resumed from their checkpoint to 150, against the
-                 uninterrupted run;
+                 every 2 chunks (march + build_windows once a flow step);
+                 then 100 steps resumed from their checkpoint to 150,
+                 against the uninterrupted run;
   driver_reference_config
                  the reference's own configuration (256^2, 50 packets) on
                  the per-stage path, which launches no kernel of the port,
@@ -50,20 +54,23 @@ graph call none, and graph_path counts their kernels in a device trace):
   ensemble_path  the JAX package's Run I sweep (12 members, 256^2, 2^14
                  packets each) through run_sweep(ensemble=True), 300 flow
                  steps with one launch of the batched march and of the
-                 batched transpose a step for all members (then a resume,
-                 100 steps with the batched one-pass window build as its
-                 own path, ensemble_path_fused_build, and the same members
-                 one after another through the solo chunk beside it);
+                 batched window build a step for all members (then a
+                 resume, 100 steps with march_fused_build=True as its own
+                 path, ensemble_path_fused_build, which launches the same
+                 kernels, and the same members one after another through
+                 the solo chunk beside it);
   grad_path      the differentiable path: the two-layer main path's
                  configuration differentiated through one flow step and a
                  chunk of 5, rematerialised and not, w.r.t. the packets'
-                 wavevectors and the PV spectrum (march + transpose in the
-                 forward, again in remat's recompute, the transpose in the
-                 flow gradient's backward; the march's backward kernel
-                 once a differentiated step; the march's backward alone
-                 on both its routes, the kernel and autograd through its
-                 plain version, as march_backward_plain), one
-                 flow-gradient step of the
+                 wavevectors and the PV spectrum (march in the forward
+                 and again in remat's recompute; a window build that needs
+                 a gradient by the strided copy and the transpose, whose
+                 backward runs the transpose again, one that needs none,
+                 as every build w.r.t. the packets, by build_windows; the
+                 march's backward kernel once a differentiated step; the
+                 march's backward alone on both its routes, the kernel and
+                 autograd through its plain version, as
+                 march_backward_plain), one flow-gradient step of the
                  one-layer model with the one-pass window build, and the
                  JAX package's GRAD_r05 configuration (256^2, 2^14 packets,
                  50 and 250 steps) in float64 and float32 against its
@@ -249,6 +256,12 @@ RAYS_F32_ATOL = 2e-5
 RAYS_F64_ATOL = 1e-10
 RAYS_STEPS = 50
 
+# Kernels that no main path launches, only the phases that hold them
+# against their plain versions and time them: the batched K2, since an
+# ensemble is never differentiated and its build on the card is one pass
+# (ops/march_window.window_build_route).
+KERNEL_PHASES_ONLY = ("transpose_batched",)
+
 # Timed chunks of packet_steps_per_save flow steps on the main path, after
 # two warm-up chunks.
 N_CHUNKS = 5
@@ -302,10 +315,20 @@ def reset_launches():
     for wrapper in MARCH_WRAPPERS:
         wrapper.launches_by_route = dict.fromkeys(
             wrapper.launches_by_route, 0)
+    routes = mw.build_gather_windows.routes   # one table, kept in place
+    for route in routes:
+        routes[route] = 0
 
 
 def read_launches():
     return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+
+
+def read_build_routes():
+    """The window builds by route (build_gather_windows.routes) since the
+    last reset_launches: counted a call, also in the pass that captures a
+    CUDA graph, and not at a replay."""
+    return dict(mw.build_gather_windows.routes)
 
 
 # ---------------------------------------------------------------------------
@@ -524,10 +547,13 @@ def check_build_windows(dev):
                             got, mw.build_margin_windows(F, spec).t()):
                         raise AssertionError(f"{label}: differs from the "
                                              "two-pass route")
-                    if not torch.equal(got,
-                                       mw.build_gather_windows(F, spec)):
-                        raise AssertionError(f"{label}: build_gather_windows "
-                                             "took another route")
+                    for fused in (True, False):
+                        sp = spec._replace(fused_build=fused)
+                        if not torch.equal(got,
+                                           mw.build_gather_windows(F, sp)):
+                            raise AssertionError(
+                                f"{label}: build_gather_windows (fused_build"
+                                f"={fused}) differs")
                     cases += 1
                     unstaged += margin == 12 and dtype == torch.float64
     if unstaged != 1:
@@ -999,9 +1025,7 @@ def ensemble_card_vs_cpu(dev, base, march):
     expected = dict.fromkeys(WRAPPERS, 0)
     if march:
         expected["march_batched"] = 10
-        window = ("build_windows_batched" if sg.march.fused_build
-                  else "transpose_batched")
-        expected[window] = 11
+        expected["build_windows_batched"] = 11  # one pass on the card
     if lg != expected:
         raise AssertionError(f"ensemble: card launches {lg}, expected "
                              f"{expected}")
@@ -1124,6 +1148,14 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
     if launches != expected:
         raise AssertionError(f"{phase}: launch counts {launches}, expected "
                              f"{expected}")
+    # every build needs no gradient, so every one is one pass; the route
+    # counter counts the builds of the capture's pass too (the wrappers do
+    # not count the launches recorded there)
+    build_routes = read_build_routes()
+    builds = ran + 1 + took["captures"] * per_save
+    if build_routes != {"one_pass": builds, "two_pass": 0}:
+        raise AssertionError(f"{phase}: window builds by route "
+                             f"{build_routes}, expected {builds} one pass")
     # by the counts the launches themselves left: every one on the route
     # the rule gives
     rule = mw.march_route(s.march, carry.packet_x.dtype)
@@ -1162,6 +1194,7 @@ def drive_coupled(phase, cfg, setup, run_chunk, max_speed, per_step, n_chunks):
          host_seconds=wall, flow_steps_per_s=steps / seconds,
          packet_steps_per_s=steps * cfg.n_packets / seconds,
          ms_per_flow_step=1e3 * seconds / steps, launches=launches,
+         window_build_routes=build_routes,
          march_launches_by_route=routes, march_block=s.march.block,
          overflow=overflow,
          max_packet_displacement=moved,
@@ -1181,7 +1214,7 @@ def phase_main_path(n_chunks):
         "main_path", Coupled2Config(**FULL), setup_coupled2,
         run_coupled2_chunk,
         lambda qk, s: qg2.max_speed2(qk, s.grid, s.ops, s.params),
-        ("march", "transpose"), n_chunks)
+        ("march", "build_windows"), n_chunks)
 
 
 def phase_main_path_qg1(n_chunks):
@@ -1225,7 +1258,7 @@ def phase_graph_path(dev):
     replayed; models/step_graph.py), timed with CUDA events and on the
     host's clock around the chunk calls, and the two routes' carries and
     saves held equal bit for bit. The eager loop's wrappers count K1 and
-    K2 once a step; a replay calls no wrapper, so the graph route's
+    K3 once a step; a replay calls no wrapper, so the graph route's
     kernels are counted in a device trace of one chunk, and must be the
     eager chunk's, kernel by kernel."""
     out = {}
@@ -1253,6 +1286,7 @@ def phase_graph_path(dev):
                           ("eager", eager), ("graph", graph)):
             c = carry
             counts0 = read_launches()
+            builds0 = read_build_routes()
             routes0 = dict(mw.march_gathered_cuda.launches_by_route)
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -1272,6 +1306,8 @@ def phase_graph_path(dev):
             rec["enqueue_ms_per_step"].append(1e3 * host / steps)
             rec["launches"] = {k: n - counts0[k]
                                for k, n in read_launches().items()}
+            rec["build_routes"] = {r: n - builds0[r] for r, n
+                                   in read_build_routes().items()}
             rec["by_route"] = {
                 r: n - routes0[r]
                 for r, n in mw.march_gathered_cuda.launches_by_route.items()}
@@ -1285,12 +1321,18 @@ def phase_graph_path(dev):
                 raise AssertionError(f"graph_path at {n_packets} packets: "
                                      "the routes' answers differ")
         want = dict.fromkeys(WRAPPERS, 0)
-        want["march"] = want["transpose"] = N_CHUNKS * per_save
+        want["march"] = want["build_windows"] = N_CHUNKS * per_save
         if e["launches"] != want or any(g["launches"].values()):
             raise AssertionError(
                 f"graph_path: wrapper launch counts {e['launches']} by the "
                 f"eager loop (expected {want}), {g['launches']} by the "
                 "graph route (expected none)")
+        if e["build_routes"] != {"one_pass": N_CHUNKS * per_save,
+                                 "two_pass": 0} or \
+                any(g["build_routes"].values()):
+            raise AssertionError(
+                f"graph_path: window builds by route {e['build_routes']} by "
+                f"the eager loop, {g['build_routes']} by the graph route")
         routes = {k: step_graph.ROUTES[k] - before[k]
                   for k in step_graph.ROUTES}
         if routes["captures"] != 1 or routes["graph"] != (
@@ -1322,6 +1364,8 @@ def phase_graph_path(dev):
              speedup=speedup, **row,
              wrapper_launches_per_chunk={
                  k: n // N_CHUNKS for k, n in e["launches"].items() if n},
+             window_build_routes_per_eager_chunk={
+                 k: n // N_CHUNKS for k, n in e["build_routes"].items()},
              march_launches_by_route_per_chunk=by_route,
              kernel_records_per_chunk=records,
              peak_memory_bytes=torch.cuda.max_memory_allocated())
@@ -1495,7 +1539,9 @@ def phase_march_routes(args):
 
 def phase_kernels(cfg, s, carry, steps):
     """K1 march and K2 transpose at the two-layer main path's shapes, and
-    the parts of one two-layer flow step."""
+    the parts of one two-layer flow step as the lock-step runs it (the
+    window build in one pass, K3), beside the two-pass build (the strided
+    copy, then K2) on the same fields."""
     spec = s.march
     dtype = carry.packet_x.dtype
     item = carry.packet_x.element_size()
@@ -1507,7 +1553,10 @@ def phase_kernels(cfg, s, carry, steps):
     fields2 = qg2.top_layer_flow(state2.qk, s.grid, s.ops, s.params,
                                  cfg.one_layer_quirk, n_fields=spec.nf).fields
     W = mw.build_margin_windows(fields2, spec)           # (K, ncells)
-    win2 = mw.transpose_cuda(W)
+    win2 = mw.build_gather_windows(fields2, spec)        # one pass, K3
+    if not torch.equal(win2, mw.transpose_cuda(W)):
+        raise AssertionError("the one-pass build differs from the two-pass "
+                             "build at the main shape")
     x, k = carry.packet_x, carry.packet_k
     sub_dt = s.dt / cfg.n_substeps
     (args, (march_ms, march_single_ms), march_err,
@@ -1521,16 +1570,21 @@ def phase_kernels(cfg, s, carry, steps):
         "top_layer_flow": lambda: qg2.top_layer_flow(
             state2.qk, s.grid, s.ops, s.params, cfg.one_layer_quirk,
             n_fields=spec.nf),
-        "build_margin_windows": lambda: mw.build_margin_windows(fields2,
+        "build_gather_windows": lambda: mw.build_gather_windows(fields2,
                                                                 spec),
-        "transpose_cuda": lambda: mw.transpose_cuda(W),
         "packet_cells": lambda: mw.packet_cells(x[0], x[1], spec),
     })
     breakdown["march_gathered_cuda"] = march_single_ms
+    two_pass = time_parts({
+        "build_margin_windows": lambda: mw.build_margin_windows(fields2,
+                                                                spec),
+        "transpose_cuda": lambda: mw.transpose_cuda(W),
+    })
     emit("step_breakdown", unit="ms, median, each part alone, one call "
                                 "between two events",
          sum_of_parts=sum(breakdown.values()), **breakdown,
-         march_route=march_route)
+         march_route=march_route,
+         two_pass_route_on_the_same_fields=two_pass)
     phase_march_routes(args)
     march_ms_by_route = ms_by_route(
         lambda route, c: mw.march_gathered_cuda(*args, route=route,
@@ -2026,8 +2080,9 @@ def phase_driver_path(tmp, main):
     with a checkpoint every 2 chunks, launch counts set to 0 just before:
     K1 once per flow step that runs eagerly and once per graph capture
     (the step run before it; a replay calls no wrapper), on the route the
-    rule gives the main path, K2 as often plus the first carry's windows
-    plus one per window rebuild after a CFL recheck. Then 100 steps,
+    rule gives the main path, K3 as often plus the first carry's windows
+    plus one per window rebuild after a CFL recheck, every build one pass.
+    Then 100 steps,
     resumed from their checkpoint to 150, against the uninterrupted run."""
     n_p = DRIVER["Npackets"]
     steps = 150
@@ -2054,13 +2109,20 @@ def phase_driver_path(tmp, main):
         raise AssertionError(f"driver_path: march launches {launches}, "
                              f"routes {routes}, expected {ran} {rule} "
                              f"(chunk loop routes {took})")
-    rebuilds = launches["transpose"] - ran - 1
+    rebuilds = launches["build_windows"] - ran - 1
     if not 0 <= rebuilds <= rechecks:
-        raise AssertionError(f"driver_path: {launches['transpose']} "
-                             f"transposes for {ran} steps run by wrapper "
+        raise AssertionError(f"driver_path: {launches['build_windows']} "
+                             f"window builds for {ran} steps run by wrapper "
                              f"calls and {rechecks} CFL rechecks")
+    # the route counter also counts the builds of each capture's pass
+    build_routes = read_build_routes()
+    builds = launches["build_windows"] + took["captures"] * (
+        steps // len(metrics))
+    if build_routes != {"one_pass": builds, "two_pass": 0}:
+        raise AssertionError(f"driver_path: window builds by route "
+                             f"{build_routes}, expected {builds} one pass")
     others = {k: v for k, v in launches.items()
-              if k not in ("march", "transpose") and v}
+              if k not in ("march", "build_windows") and v}
     if others:
         raise AssertionError(f"driver_path launched {others}")
     if carry.overflow is None or int(carry.overflow) != 0:
@@ -2135,10 +2197,11 @@ def phase_driver_path(tmp, main):
     emit("driver_path", nx=512, n_packets=n_p, flow_steps=steps,
          chunks=len(metrics), wall_seconds=wall, chunk_seconds=chunk_seconds,
          launches=launches, march_launches_by_route=routes,
-         transpose_launches=launches["transpose"],
-         transpose_per_wrapper_step=ran, transpose_first_carry=1,
+         window_build_launches=launches["build_windows"],
+         window_build_routes=build_routes,
+         window_builds_per_wrapper_step=ran, window_build_first_carry=1,
          chunk_loop_routes=took,
-         transpose_rebuilds_after_cfl_recheck=rebuilds,
+         window_rebuilds_after_cfl_recheck=rebuilds,
          cfl_rechecks=rechecks,
          overflow=int(carry.overflow), omega_hist_frames=int(hist.shape[0]),
          omega_hist_overflow_slot=float(hist[:, -1].sum()),
@@ -2455,10 +2518,11 @@ def phase_ensemble_path(tmp):
     """Run I's ensemble sweep on the card through run_sweep(ensemble=True),
     the launch counts set to 0 just before and read just after: 300 flow
     steps of 12 members, one launch of the batched march and of the
-    batched transpose a flow step for all members. Then 200 steps resumed
-    from their checkpoint to 300 (histograms and packets equal bit for
-    bit); 100 steps with the one-pass window build (the batched build
-    kernel; histograms equal the two-pass run's); the ensemble's chunks
+    batched window build a flow step for all members. Then 200 steps
+    resumed from their checkpoint to 300 (histograms and packets equal bit
+    for bit); 100 steps with march_fused_build=True (the same batched
+    build kernel, as every build on the card that needs no gradient;
+    histograms equal the first run's); the ensemble's chunks
     alone (no files); and the same 12 members for the same 300 steps one
     after another through the solo run_coupled_chunk."""
     E, n_p = len(ENSEMBLE_SWEEP), ENSEMBLE["Npackets"]
@@ -2478,12 +2542,15 @@ def phase_ensemble_path(tmp):
         raise AssertionError(f"members live: {metrics}")
     expected = dict.fromkeys(WRAPPERS, 0)
     expected["march_batched"] = steps
-    expected["transpose_batched"] = steps + 1   # and the first carry's
+    expected["build_windows_batched"] = steps + 1  # and the first carry's
+    build_routes = read_build_routes()
     took = [r for r, n in routes.items() if n]
-    if launches != expected or routes.get(took[0] if took else None) != steps:
+    if launches != expected or routes.get(took[0] if took else None) != \
+            steps or build_routes != {"one_pass": steps + 1, "two_pass": 0}:
         raise AssertionError(f"ensemble_path: launch counts {launches}, "
-                             f"routes {routes}, expected {expected}, all on "
-                             "one route")
+                             f"routes {routes}, window builds by route "
+                             f"{build_routes}, expected {expected}, all on "
+                             "one route, every build one pass")
     overflow = carry.overflow.cpu().tolist()
     if max(overflow) != 0 or not (carry.flow_state.step == steps).all():
         raise AssertionError(f"ensemble_path: overflow {overflow}, steps "
@@ -2519,8 +2586,8 @@ def phase_ensemble_path(tmp):
                              "run's")
     del resumed
 
-    # the one-pass window build: the batched build kernel in place of the
-    # shifted copies and the batched transpose, the same windows
+    # the field that names the one-pass build: on the card it changes
+    # nothing, the same kernels and the same windows
     fused_steps = ENSEMBLE["steps_per_save"]
     reset_launches()
     fused, _, _, _ = run_ensemble_driver(tmp / "fused", fused_steps,
@@ -2536,8 +2603,8 @@ def phase_ensemble_path(tmp):
     for h, b in zip(hists, member_files(tmp / "fused", "omega_hist")):
         if not np.array_equal(np.frombuffer(b).reshape(-1, n_bins),
                               h[:fused_frames]):
-            raise AssertionError("the one-pass build's histograms differ "
-                                 "from the two-pass run's")
+            raise AssertionError("march_fused_build=True changed the "
+                                 "histograms")
     del fused
 
     # the chunks alone, without files: the ensemble, then the members one
@@ -2616,7 +2683,7 @@ def phase_ensemble_path(tmp):
     seq_ran = seq_routes["eager"] + seq_routes["captures"]
     if seq_routes["eager"] + seq_routes["graph"] != E * steps or \
             launches_seq["march"] != seq_ran or \
-            launches_seq["transpose"] != seq_ran + E:
+            launches_seq["build_windows"] != seq_ran + E:
         raise AssertionError(f"sequential launches {launches_seq}, chunk "
                              f"loop routes {seq_routes}")
     if not all(np.isfinite(dx + dk)):
@@ -2636,10 +2703,11 @@ def phase_ensemble_path(tmp):
          chunks=n_chunks,
          ensemble={
              "launches": launches, "march_launches_by_route": routes,
+             "window_build_routes": build_routes,
              "launches_per_ensemble_step": {
                  "march_batched": launches["march_batched"] / steps,
-                 "transpose_batched": (launches["transpose_batched"] - 1)
-                 / steps},
+                 "build_windows_batched":
+                     (launches["build_windows_batched"] - 1) / steps},
              "host_seconds": host_s, "cuda_event_seconds": event_s,
              "chunk_seconds": sum(m["wall_s"] for m in metrics),
              "packet_steps_per_sec_chunks_2_to_3": rate,
@@ -2656,7 +2724,7 @@ def phase_ensemble_path(tmp):
                  "omega_hist_and_snapshots_equal": True,
                  "packets_equal_bit_for_bit": True},
          fused_build={"flow_steps": fused_steps, "launches": launches_fused,
-                      "omega_hist_equal_to_two_pass": True},
+                      "omega_hist_equal_to_the_first_run": True},
          chunks_alone={
              "ensemble": {"host_seconds": alone_host,
                           "cuda_event_seconds": alone_event,
@@ -2665,9 +2733,9 @@ def phase_ensemble_path(tmp):
                           "launches_per_ensemble_step": {
                               "march_batched":
                                   launches_alone["march_batched"] / steps,
-                              "transpose_batched":
-                                  (launches_alone["transpose_batched"] - 1)
-                                  / steps},
+                              "build_windows_batched":
+                                  (launches_alone["build_windows_batched"]
+                                   - 1) / steps},
                           "peak_memory_bytes": peak_alone,
                           "overflow": alone_ov,
                           "equal_to_the_driver_run_bit_for_bit": True},
@@ -2739,22 +2807,25 @@ def with_grad_leaf(carry, wrt):
 
 def expected_grad_launches(steps, wrt, remat, window):
     """Launches of one differentiated chunk of `steps` flow steps: K1 once a
-    step; the window kernel (`window`: "transpose" K2, or "build_windows"
-    K3) once a step for the new snapshot, twice under remat (the carry
-    holds no windows, so each step builds both snapshots'); the backward
-    recomputes each step under remat; K2 runs again in the backward once
-    for each forward transpose whose windows need a gradient (the flow
-    gradient): all but the first step's blend-start windows, which come
-    from the carry's fields and do not depend on qk. K3's backward is the
+    step; a window build once a step for the new snapshot, twice under
+    remat (the carry holds no windows, so each step builds both
+    snapshots'); the backward recomputes each step under remat. A build
+    whose fields need no gradient is one pass, K3 (window_build_route):
+    every build w.r.t. the packets, and under remat the first step's
+    blend-start windows, which come from the carry's fields and do not
+    depend on qk. A build that needs one launches `window` ("transpose"
+    K2 after the strided copy, or "build_windows" K3). K2 runs again in
+    the backward once for each forward transpose; K3's backward is the
     plain build's transpose."""
     per_step = 2 if remat else 1
+    builds = per_step * steps
+    constant = builds if wrt == "packet_k" else int(remat)
     forward = dict.fromkeys(WRAPPERS, 0)
     forward["march"] = steps
-    forward[window] = per_step * steps
+    forward["build_windows"] += constant
+    forward[window] += builds - constant
     recompute = {k: v if remat else 0 for k, v in forward.items()}
-    backward = (per_step * steps - (1 if remat else 0)
-                if wrt == "qk" and window == "transpose" else 0)
-    return forward, recompute, backward
+    return forward, recompute, forward["transpose"]
 
 
 def differentiate(run_chunk, s, cfg, carry, steps, wrt, remat, window):
@@ -2778,15 +2849,15 @@ def differentiate(run_chunk, s, cfg, carry, steps, wrt, remat, window):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    before = grad_counts()
+    before, builds0 = grad_counts(), read_build_routes()
     e0.record()
     loss, leaf, c2 = forward()
     e1.record()
-    mid = grad_counts()
+    mid, builds1 = grad_counts(), read_build_routes()
     (g,) = torch.autograd.grad(loss, leaf)
     e2.record()
     torch.cuda.synchronize()
-    after = grad_counts()
+    after, builds2 = grad_counts(), read_build_routes()
     peak = torch.cuda.max_memory_allocated()
     fwd = {k: mid[k] - before[k] for k in before}
     bwd = {k: after[k] - mid[k] for k in before}
@@ -2801,6 +2872,16 @@ def differentiate(run_chunk, s, cfg, carry, steps, wrt, remat, window):
     want_f, want_r, want_b = expected_grad_launches(steps, wrt, remat,
                                                     window)
     label = f"grad_path {window} {steps} steps d/d{wrt} remat={remat}"
+    # a two-pass build launches K2, a one-pass build K3
+    build_routes = {
+        part: {r: b[r] - a[r] for r in a}
+        for part, a, b in (("forward", builds0, builds1),
+                           ("recompute", builds1, builds2))}
+    for part, want in (("forward", want_f), ("recompute", want_r)):
+        if build_routes[part] != {"one_pass": want["build_windows"],
+                                  "two_pass": want["transpose"]}:
+            raise AssertionError(f"{label}: window builds by route "
+                                 f"{build_routes}")
     # every differentiated step's march takes the backward kernel's route
     if (launches["forward"] != want_f or launches["recompute"] != want_r
             or launches["backward"]["transpose"] != want_b
@@ -2819,7 +2900,7 @@ def differentiate(run_chunk, s, cfg, carry, steps, wrt, remat, window):
                 fwd_bwd_ms=e0.elapsed_time(e2), peak_memory_bytes=peak,
                 peak_above_start_bytes=peak - base,
                 grad_abs_max=float(g.abs().max()), loss=float(loss.detach()),
-                launches=launches)
+                launches=launches, window_build_routes=build_routes)
 
 
 def march_backward_flops_per_packet(spec):
@@ -2998,8 +3079,9 @@ def phase_grad_path(dev):
     configuration at full width, one flow step and a chunk of 5, each
     rematerialised and not, differentiated w.r.t. the packets' wavevectors
     and w.r.t. the PV spectrum (the flow gradient: K2 runs again in the
-    backward); the march's plain backward alone; one flow-gradient step of
-    the one-layer model with the one-pass window build (K3). (b) GRAD_r05's
+    backward; a build that needs no gradient is one pass, K3); the march's
+    plain backward alone; one flow-gradient step of the one-layer model
+    with the one-pass window build (K3). (b) GRAD_r05's
     matched configuration in float64 and float32, against its own finite
     difference and the JAX package's float64 adjoint."""
     reset_launches()
@@ -3952,11 +4034,11 @@ def phase_multirank_path(dev, tmp, main, final_two, final_one):
     launches_nccl = expected_counts(launches_turns, read_launches())
     steps_sweep = MULTIRANK_SWEEP_STEPS
     expected = expected_counts(
-        *[coupled_launches("march", "transpose", r)
+        *[coupled_launches("march", "build_windows", r)
           for r in sharded_routes],
         coupled_launches("march", "build_windows",
                          one_layer["chunk_loop_routes"]),
-        coupled_launches("march", "transpose", scaling_routes),
+        coupled_launches("march", "build_windows", scaling_routes),
         {"march_batched": steps_sweep,
          "build_windows_batched": steps_sweep + 1})
     if launches_nccl != expected:
@@ -3979,10 +4061,10 @@ def phase_multirank_path(dev, tmp, main, final_two, final_one):
     members_per_rank = len(ENSEMBLE_SWEEP) // MULTIRANK_WORLD
     for r, got in enumerate(ranks):
         expected_rank = expected_counts(
-            coupled_launches("march", "transpose",
+            coupled_launches("march", "build_windows",
                              got["main"]["chunk_loop_routes"]),
             *[{"march_batched": steps_sweep,
-               "transpose_batched": steps_sweep + 1}] * len(MESH_SWEEPS))
+               "build_windows_batched": steps_sweep + 1}] * len(MESH_SWEEPS))
         merged = expected_counts(got["launches_main"], got["launches_sweep"])
         if merged != expected_rank or got["main"]["overflow"]:
             raise AssertionError(f"multirank_path rank {r}: launch counts "
@@ -4188,7 +4270,7 @@ def main():
         if row["name"] == "transpose":
             row["launches_by_direction_by_path"] = {
                 "grad_path": transpose_by_direction}
-        if row["launches"] < 1:
+        if row["launches"] < 1 and row["name"] not in KERNEL_PHASES_ONLY:
             raise AssertionError(f"no main path launched {row['name']}")
     emit("kernel_bounds", hbm_bytes_per_s=HBM_BYTES_PER_S,
          flops_per_s=FLOPS_PER_S[torch.float32], **bounds)

@@ -106,9 +106,11 @@ class CoupledConfig(NamedTuple):
     # Explicit march margin (cells) overriding required_margin's CFL
     # sizing; None = size from dt and the initial max speed.
     march_margin: int | None = None
-    # One-kernel window build (march_window.build_windows_fused): writes
+    # One-pass window build (march_window.build_windows_fused): writes
     # the (ncells, K) window array once instead of shifted copies + the
-    # tiled transpose. Exact same output.
+    # tiled transpose. Exact same output. Read only by a build that needs
+    # a gradient or lies on the CPU; a CUDA build that needs none is one
+    # pass whatever it says (march_window.window_build_route).
     march_fused_build: bool = False
 
 

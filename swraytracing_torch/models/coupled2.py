@@ -81,7 +81,9 @@ class Coupled2Config(NamedTuple):
     # Explicit march margin (cells) overriding required_margin's CFL
     # sizing; None = size from dt and the initial max speed.
     march_margin: int | None = None
-    march_fused_build: bool = False     # one-kernel window build
+    # One-pass window build, read only by a build that needs a gradient
+    # or lies on the CPU (CoupledConfig.march_fused_build).
+    march_fused_build: bool = False
 
 
 class Coupled2Setup(NamedTuple):

@@ -42,8 +42,10 @@ before a capture, to make lazily made state (the operators' device
 copies, cuFFT plans) outside it, whose result is thrown away. A call
 inside the capture records its launch into the graph and is not counted,
 and a replay calls no wrapper; a profiler sees a replay's kernels
-(chip_smoke.py's graph_path counts them). ROUTES counts the chunk loop's
-steps by route and the captures (run_lockstep_chunk.routes). The port's
+(chip_smoke.py's graph_path counts them). So does the window build's
+route counter (ops/march_window.build_gather_windows.routes): a capture's
+builds count, a replay's do not. ROUTES counts the chunk loop's steps by
+route and the captures (run_lockstep_chunk.routes). The port's
 spans inside the step (swr.step, swr.flow, swr.fields, swr.windows,
 swr.march) run in the capture's pass only, not at a replay; each replay
 runs inside the span swr.graph (utils/profiling.span).

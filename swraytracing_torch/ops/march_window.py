@@ -84,6 +84,7 @@ __all__ = [
     "build_windows_reference",
     "build_windows_cuda",
     "build_windows_fused",
+    "window_build_route",
     "build_gather_windows",
     "packet_cells",
     "gather_packet_windows",
@@ -150,10 +151,11 @@ class MarchSpec(NamedTuple):
     # spectrally differentiated grids (grid_U.m:1-18). 3x smaller windows;
     # the accuracy cost is 5th order in dx.
     grad_from_interp: bool = False
-    # Build the (ncells, K) window array in ONE kernel
-    # (build_windows_fused) instead of shifted copies + the tiled
-    # transpose: the window array is written once and never re-read.
-    # Same output bit for bit.
+    # Build the (ncells, K) window array in ONE pass (build_windows_fused)
+    # instead of shifted copies + the tiled transpose: the window array is
+    # written once and never re-read. Same output bit for bit. Read only
+    # where a build needs a gradient or lies on the CPU: a CUDA build that
+    # needs none is one pass whatever it says (window_build_route).
     fused_build: bool = False
 
     @property
@@ -241,25 +243,53 @@ def build_windows_reference(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
     return shifted.permute(3, 4, 0, 1, 2).reshape(nx * ny, spec.K)
 
 
+def window_build_route(F: torch.Tensor, spec: MarchSpec) -> str:
+    """How build_gather_windows builds the rows of fields F, by what the
+    call can see: "one_pass" (the build kernel K3, or its plain version)
+    or "two_pass" (the shifted views' strided copy, then the transpose
+    kernel K2, or their plain versions). A build on a CUDA tensor that
+    needs no gradient (grad mode off, or F does not require grad) is one
+    pass. Otherwise spec.fused_build chooses: a build that needs a
+    gradient (the two forms have different backwards) and a CPU build.
+    The two routes give the same bits."""
+    if F.is_cuda and not (torch.is_grad_enabled() and F.requires_grad):
+        return "one_pass"
+    return "one_pass" if spec.fused_build else "two_pass"
+
+
+# How often build_gather_windows took each route, kept here (and not read
+# through the function's name) so that a wrapper put in the function's
+# place counts into the same table.
+_BUILD_ROUTES_TAKEN = {"one_pass": 0, "two_pass": 0}
+
+
 def build_gather_windows(F: torch.Tensor, spec: MarchSpec) -> torch.Tensor:
     """(nf, nx, ny) fields -> the (ncells, K) window array the march reads
-    by cell: in one pass with spec.fused_build (build_windows_fused), else
-    shifted copies through window_transpose (the transpose kernel on a
-    CUDA tensor). Both serve any nx, ny.
+    by cell, by the route window_build_route gives: in one pass
+    (build_windows_fused: the build kernel on a CUDA tensor), or shifted
+    copies through window_transpose (the transpose kernel on a CUDA
+    tensor). Both serve any nx, ny.
 
     An ensemble's (E, nf, nx, ny) fields give (E, ncells, K) arrays,
     member by member the same, through the batched kernels
     (build_windows_batched, transpose_batched): one launch for all
-    members. Runs inside the span swr.windows (utils/profiling.span)."""
+    members. Counts each call by route in `build_gather_windows.routes`,
+    also while a CUDA graph is being captured (a replay calls nothing).
+    Runs inside the span swr.windows (utils/profiling.span)."""
     _check_spec(spec)
+    route = window_build_route(F, spec)
+    _BUILD_ROUTES_TAKEN[route] += 1
     with span("swr.windows"):
-        if F.dim() == 4:
-            if spec.fused_build:
+        if route == "one_pass":
+            if F.dim() == 4:
                 return build_windows_batched(F, spec)
-            return transpose_batched(build_margin_windows(F, spec))
-        if spec.fused_build:
             return build_windows_fused(F, spec)
+        if F.dim() == 4:
+            return transpose_batched(build_margin_windows(F, spec))
         return window_transpose(build_margin_windows(F, spec))
+
+
+build_gather_windows.routes = _BUILD_ROUTES_TAKEN
 
 
 def packet_cells(x: torch.Tensor, y: torch.Tensor, spec: MarchSpec):

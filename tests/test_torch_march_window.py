@@ -159,6 +159,123 @@ def test_build_windows_fused_gradient():
     assert_close(Ft.grad, to_numpy(Fr.grad), rtol=1e-13, atol=1e-13)
 
 
+# ---------------------------------------------------------------------------
+# the window build's route (window_build_route) and its counter
+# ---------------------------------------------------------------------------
+
+def _routes_since(before):
+    return {r: n - before[r]
+            for r, n in tmw.build_gather_windows.routes.items()}
+
+
+class _OnTheCard:
+    """What window_build_route reads of a CUDA tensor, on a machine
+    without one."""
+
+    is_cuda = True
+
+    def __init__(self, requires_grad):
+        self.requires_grad = requires_grad
+
+
+# case -> (fields: "cpu" or "cuda", F requires grad, grad mode,
+#          spec.fused_build, the route)
+ROUTE_RULE = {
+    "card, no gradient, two-pass field": ("cuda", False, True, False,
+                                          "one_pass"),
+    "card, grad mode off": ("cuda", True, False, False, "one_pass"),
+    "card, grad mode off, one-pass field": ("cuda", True, False, True,
+                                            "one_pass"),
+    "card, needs a gradient": ("cuda", True, True, False, "two_pass"),
+    "card, needs a gradient, one-pass field": ("cuda", True, True, True,
+                                               "one_pass"),
+    "cpu, two-pass field": ("cpu", False, True, False, "two_pass"),
+    "cpu, grad mode off": ("cpu", False, False, False, "two_pass"),
+    "cpu, one-pass field": ("cpu", False, True, True, "one_pass"),
+    "cpu, needs a gradient": ("cpu", True, True, False, "two_pass"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_RULE))
+def test_window_build_route_rule(case):
+    """A build on the card that needs no gradient is one pass whatever
+    spec.fused_build says; a build that needs one, and a CPU build,
+    follow spec.fused_build."""
+    where, requires_grad, grad, fused, want = ROUTE_RULE[case]
+    _, ts = _specs(fused_build=fused)
+    F = (_OnTheCard(requires_grad) if where == "cuda"
+         else torch.zeros(6, NX, NX, requires_grad=requires_grad))
+    with torch.set_grad_enabled(grad):
+        assert tmw.window_build_route(F, ts) == want
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("fused_build", [False, True])
+def test_cpu_build_follows_fused_build(fused_build, batched):
+    """On the CPU spec.fused_build still picks the form, counted once a
+    call under its route, and either form gives the JAX package's rows
+    bit for bit (member by member for an ensemble's fields)."""
+    js, ts = _specs(nf=2, margin=2, grad_from_interp=True,
+                    tiles_transposed=True, fused_build=fused_build,
+                    interpret=True)
+    F1, F2 = _state(seed=4)[:2]
+    members = [F1, F2] if batched else [F1]
+    F = to_torch(np.stack(members)) if batched else to_torch(F1)
+    before = dict(tmw.build_gather_windows.routes)
+    got = tmw.build_gather_windows(F, ts)
+    route = "one_pass" if fused_build else "two_pass"
+    assert _routes_since(before) == {"one_pass": 0, "two_pass": 0,
+                                     route: 1}
+    rows = got if batched else got[None]
+    assert rows.shape == (len(members), NX * NX, ts.K)
+    for w, Fm in zip(rows, members):
+        assert_equal(w, jpw.build_gather_windows(to_jax(Fm), js))
+
+
+@pytest.mark.parametrize("fused_build", [False, True])
+def test_build_that_needs_a_gradient_keeps_its_form(fused_build):
+    """A build that needs a gradient is counted under the form
+    spec.fused_build names, and gives that form's rows and gradient."""
+    _, ts = _specs(nf=2, margin=1, grad_from_interp=True,
+                   fused_build=fused_build)
+    F = to_torch(_state(seed=6)[0][:2]).requires_grad_(True)
+    before = dict(tmw.build_gather_windows.routes)
+    W = tmw.build_gather_windows(F, ts)
+    route = "one_pass" if fused_build else "two_pass"
+    assert _routes_since(before) == {"one_pass": 0, "two_pass": 0,
+                                     route: 1}
+    assert W.requires_grad
+    assert torch.equal(W.detach(),
+                       tmw.build_margin_windows(F.detach(), ts).t())
+    # each row entry is a copy of one field value: the gradient of the sum
+    # counts how often each value is copied, SW^2 times
+    (g,) = torch.autograd.grad(W.sum(), F)
+    assert torch.equal(g, torch.full_like(g, float(ts.SW ** 2)))
+
+
+def test_build_routes_count_into_one_table():
+    """The counter's keys are the two routes; every call adds one to one
+    of them, single and batched, also through a wrapper put in the
+    function's place (as a profiler's span wrapper is)."""
+    _, ts = _specs(nf=2, margin=1, grad_from_interp=True)
+    assert tmw.build_gather_windows.routes is tmw._BUILD_ROUTES_TAKEN
+    assert set(tmw.build_gather_windows.routes) == {"one_pass", "two_pass"}
+    F = to_torch(_state(seed=7)[0][:2])
+    inner = tmw.build_gather_windows
+
+    def wrapped(*args):
+        return inner(*args)
+
+    before = dict(tmw.build_gather_windows.routes)
+    inner(F, ts)
+    inner(torch.stack([F, F]), ts)
+    wrapped(F, ts._replace(fused_build=True))
+    wrapped(torch.stack([F, F, F]), ts._replace(fused_build=True))
+    with torch.no_grad():
+        inner(F, ts)
+    assert _routes_since(before) == {"one_pass": 2, "two_pass": 3}
+
+
 def test_margins_equal():
     for args in [(0.1, 1.0, 1.0, 1.0), (1.0, 1.0, 1.0, 0.5)]:
         assert tmw.required_margin(*args) == jpw.required_margin(*args)

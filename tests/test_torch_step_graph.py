@@ -90,6 +90,13 @@ def _routes_since(before):
     return {k: sg.ROUTES[k] - before[k] for k in sg.ROUTES}
 
 
+def _builds_since(before):
+    """The window builds by route (build_gather_windows.routes) since
+    `before`."""
+    return {r: n - before[r]
+            for r, n in mw.build_gather_windows.routes.items()}
+
+
 # the lock-step's kernel wrappers, and their kernels by name in a device
 # trace
 WRAPPERS = {"march": mw.march_gathered_cuda, "transpose": mw.transpose_cuda,
@@ -219,6 +226,22 @@ def test_routes_count_the_eager_steps(path):
     assert _routes_since(before) == {"graph": 0, "captures": 0,
                                      "eager": (N_SAVES + 1) * PER_SAVE}
     assert len(sg._CACHE) == 0
+
+
+@pytest.mark.parametrize("name,over,route", [
+    ("two_layer", {}, "two_pass"),
+    ("one_layer", {}, "two_pass"),
+    ("one_layer", {"march_fused_build": True}, "one_pass")])
+def test_window_builds_count_by_route(name, over, route):
+    """On the CPU a chunk's window builds follow march_fused_build: one a
+    step and one for the first carry's windows, each counted under its
+    route in build_gather_windows.routes."""
+    cfg, s, c, run, _ = _model(name, **over)
+    before = dict(mw.build_gather_windows.routes)
+    run(c, s, cfg, N_SAVES)
+    took = _builds_since(before)
+    assert took == {"one_pass": 0, "two_pass": 0,
+                    route: N_SAVES * PER_SAVE + 1}
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -354,7 +377,11 @@ def test_graph_route_is_the_eager_loop(card, case, diag, tmp_path):
                 lambda: run(cg, s, cfg, N_SAVES, diag_fn=diag_fn), tmp_path)
         graph = _launches_since(n1)
         _require_same_bits(_answers(cg, og), _answers(ce, oe))
+        # on the card every forward build is one pass (window_build_route),
+        # the first chunk's also for its first carry's windows
         assert eager["march"] == steps
+        assert eager["build_windows"] == steps + (i == 0)
+        assert eager["transpose"] == 0
         if i == 0:
             assert graph == eager
         elif i == 1:
@@ -367,6 +394,41 @@ def test_graph_route_is_the_eager_loop(card, case, diag, tmp_path):
         "graph": 2 * N_SAVES * per_save, "captures": 1,
         "eager": 4 * N_SAVES * per_save}
     assert len(sg._CACHE) == 1
+
+
+@pytest.mark.card
+def test_main_shape_one_pass_is_the_two_pass_route(card, tmp_path,
+                                                   monkeypatch):
+    """At the two-layer main path's shape (cell qg2_512.p1m) a chunk on the
+    graph route builds each step's windows in one pass: its replay's trace
+    holds build_windows_kernel once a step and no transpose_kernel, and
+    only "one_pass" builds are counted. Its windows, packets, PV and
+    overflow equal, bit for bit, those of the same chunks with every build
+    forced onto the two-pass route (the shifted views' copy, then K2), as
+    the lock-step built them before the route rule."""
+    cfg, s, c, run, step = _model("two_layer", MAIN, card, torch.float32)
+    steps = N_SAVES * cfg.packet_steps_per_save
+    c, _ = run(c, s, cfg, 1)                     # bootstrap, eager
+    before = dict(mw.build_gather_windows.routes)
+    cg, og = run(c, s, cfg, N_SAVES)             # capture, then replays
+    (cg, og), records = _kernel_records(
+        lambda: run(cg, s, cfg, N_SAVES), tmp_path)
+    took = _builds_since(before)
+    assert took["two_pass"] == 0 and took["one_pass"] > 0
+    assert records == {"march": steps, "transpose": 0,
+                       "build_windows": steps}
+    monkeypatch.setattr(mw, "window_build_route", lambda F, spec: "two_pass")
+    before = dict(mw.build_gather_windows.routes)
+    n0 = _launches()
+    ce = c
+    for _ in range(2):
+        ce, oe = _eager(ce, s, cfg, step, N_SAVES)
+    took = _builds_since(before)
+    assert took == {"one_pass": 0, "two_pass": 2 * steps}
+    forced = _launches_since(n0)
+    assert forced["transpose"] == 2 * steps and forced["build_windows"] == 0
+    _require_same_bits(_answers(cg, og), _answers(ce, oe))
+    assert int(cg.overflow) == 0
 
 
 @pytest.mark.card
