@@ -85,15 +85,19 @@ its windows with K3 and a K2 runs only where a build needs a gradient):
                  through the stencil, the bicubic and direct spectral
                  evaluations against the CPU;
   solvers_path   the remaining solvers, which launch no kernel of the port
-                 (torch.fft and the plain stencil): every RSW variant,
-                 swknd with particles, the 1-D solvers, the C-grid model,
-                 QG passive particles, RSW-restart raytracing and the
-                 wave/vortex spectra on the card against the CPU in float64
-                 at nx=64 / n=128; then at 512^2: the nonlinear RSW 500
-                 steps (float32, beside float64), swkU_tc 200 steps,
+                 (torch.fft and the plain stencil) but the x-k-a march
+                 of RSW-restart raytracing: every RSW variant, swknd with
+                 particles, the 1-D solvers, the C-grid model, QG passive
+                 particles, RSW-restart raytracing and the wave/vortex
+                 spectra on the card against the CPU in float64 at nx=64 /
+                 n=128; then at 512^2: the nonlinear RSW 500 steps
+                 (float32, beside float64), swkU_tc 200 steps,
                  raytrace_rsw_restart through its final state with 2^20
-                 packets, QG with 2^20 passive particles, and the C-grid
-                 model in float64 with walls, beta and topography;
+                 packets on its kernel route (the x-k-a kernel's and the
+                 orderings' launches counted, the route counter read, the
+                 plain route's march timed beside it and compared), QG
+                 with 2^20 passive particles, and the C-grid model in
+                 float64 with walls, beta and topography;
   multirank_path packets and members sharded over torch.distributed ranks:
                  at world size 1 over NCCL (in this process) the two- and
                  one-layer main paths through the sharded chunk (equal bit
@@ -171,7 +175,8 @@ from swraytracing_torch.models.fields import (BlendedFlow, GriddedFlow,
                                               flow_from_psi_grid, flow_from_qk)
 from swraytracing_torch.models.exact_linear import plane_wave_ic
 from swraytracing_torch.models.frozen import (_frozen_plain, raytrace_frozen,
-                                              raytrace_rsw_restart, ring_ics)
+                                              raytrace_rsw_restart,
+                                              rsw_restart_fields, ring_ics)
 from swraytracing_torch.models.reversible import make_reversible_integrator
 from swraytracing_torch.ops import march_rays as mr
 from swraytracing_torch.ops import interp
@@ -186,6 +191,7 @@ from swraytracing_torch.parallel import sharding as shd
 from swraytracing_torch.parallel.scaling import measure_packet_scaling
 from swraytracing_torch.utils import profiling
 from portbench.counts import march as march_counts
+from portbench.counts import xka as xka_counts
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 / float64 rates outside the tensor cores.
@@ -209,6 +215,7 @@ SOURCES = {
     "transpose": "swraytracing_torch/kernels/csrc/transpose.cu",
     "build_windows": "swraytracing_torch/kernels/csrc/build_windows.cu",
     "march_rays": "swraytracing_torch/kernels/csrc/march_rays.cu",
+    "march_xka": "swraytracing_torch/kernels/csrc/march_xka.cu",
 }
 SOURCES.update({f"{name}_batched": SOURCES[name]
                 for name in ("march", "transpose", "build_windows")})
@@ -219,7 +226,8 @@ MARCH_SOURCES = {"staged": SOURCES["march"], "direct": SOURCES["march"],
                  "ring": "swraytracing_torch/kernels/csrc/march_ring.cuh"}
 # "march" is the entry the coupled paths launch (rows read by cell);
 # "cell_order" is the counting sort of march_rays.cu that march_rays_cuda
-# runs before each of its launches (counted in the march_rays row);
+# and march_xka_cuda run before each of their launches (counted in the
+# march_rays and march_xka rows);
 # "*_batched" are the kernels of an ensemble's members, one launch for all.
 WRAPPERS = {
     "march": mw.march_gathered_cuda,
@@ -227,6 +235,7 @@ WRAPPERS = {
     "build_windows": mw.build_windows_cuda,
     "march_rays": mr.march_rays_cuda,
     "cell_order": mr.cell_order_cuda,
+    "march_xka": mr.march_xka_cuda,
     "march_batched": mw.march_gathered_batched_cuda,
     "transpose_batched": mw.transpose_batched_cuda,
     "build_windows_batched": mw.build_windows_batched_cuda,
@@ -3404,6 +3413,13 @@ def phase_analytic_path(dev):
 # value otherwise (swknd's pe sums 64^2 values of ~50).
 SOLVERS_SMALL = dict(nx=64, n=128)
 SOLVERS_ATOL = 1e-9
+# float32 tolerance of the x-k-a kernel against its plain version over one
+# frame (50 steps, five ordered segments) at 512^2 with 2^20 packets,
+# absolute on x (O(2 pi)) and k (O(5)), relative on a (O(1)): the card
+# tests' bound for 60 steps (tests/test_torch_rsw_route.py), about one
+# float32 rounding of each a step, four stencil sums of 36 terms a step
+# taken in another order and with FMAs
+XKA_F32_TOL = 2e-5
 # Full width: 512^2, steps cut to keep the phase within a minute.
 SOLVERS_FULL = dict(nx=512, swk_steps=500, swk_every=100, tc_steps=200,
                     packets=2 ** 20, ray_dt=1e-3, ray_steps=100,
@@ -3629,9 +3645,11 @@ def swk_512(dev, grid, ic):
 def phase_solvers_path(dev):
     """The solvers of A13 on the card, the launch counts set to 0 just
     before the full-width runs and read just after (no kernel of the port
-    runs): (a) every entry point on the card against the CPU in float64 at
-    the test sizes; (b) the full-width runs of SOLVERS_FULL, each timed by
-    CUDA events after a warm-up, with peak bytes."""
+    runs but RSW-restart raytracing's x-k-a march and its orderings): (a)
+    every entry point on the card against the CPU in float64 at the test
+    sizes; (b) the full-width runs of SOLVERS_FULL, each timed by CUDA
+    events after a warm-up, with peak bytes. Returns the x-k-a kernel's
+    row of the kernel table, its bounds and the launches."""
     t_phase = time.perf_counter()
     # (a) card against CPU
     small = {name: card_vs_cpu_errs(fn(dev), fn("cpu"))
@@ -3662,10 +3680,15 @@ def phase_solvers_path(dev):
     if bool(tst.blown) or not bool(torch.isfinite(TS).all()):
         raise AssertionError("swkU_tc_512 blew up")
     tc_run.update(dtype="float32", t_end=float(tst.t))
-    # raytrace_rsw_restart through the final state of swk_512
+    # raytrace_rsw_restart through the final state of swk_512, on its
+    # kernel route: one march_xka call a frame, each of its segments one
+    # x-k-a kernel launch and one ordering by cell
     uvh = sp.to_grid(st.Sk, grid)
     n_p, rdt = F["packets"], F["ray_dt"]
     x0, k0 = ring_ics(n_p, 2.0, disp, device=dev, dtype=torch.float32)
+    routes = dict(raytrace_rsw_restart.routes)
+    segment = mr.segment_steps(rdt, grid, disp)
+    calls = [(2, 2), (F["ray_steps"], F["ray_every"]), (5, 5)]
     raytrace_rsw_restart(*uvh, disp, grid, x0[:, :4096], k0[:, :4096],
                          dt=rdt, nsteps=2, save_every=2, device=dev)
     (xs, ks, as_, _), ray = timed_run(
@@ -3680,12 +3703,73 @@ def phase_solvers_path(dev):
     ray["profiled"] = device_share(
         lambda: raytrace_rsw_restart(*uvh, disp, grid, x0, k0, dt=rdt,
                                      nsteps=5, save_every=5, device=dev), 5)
-    ray.update(dtype="float32", packets=n_p, dt=rdt,
+    routes = {r: raytrace_rsw_restart.routes[r] - routes[r] for r in routes}
+    expected = dict.fromkeys(WRAPPERS, 0)
+    expected["march_xka"] = expected["cell_order"] = sum(
+        n // every * len(mr.split_steps(every, segment))
+        for n, every in calls)
+    launches = read_launches()
+    if routes != {"kernel": len(calls), "plain": 0} or launches != expected:
+        raise AssertionError(f"rsw_restart_512: routes {routes}, launches "
+                             f"{launches}, expected {expected}")
+    # the kernel's march of one frame beside the plain route's (the
+    # rk4_xka_step loop, what raytrace_rsw_restart ran before its kernel
+    # route), on the same seven grids and packets: one whole frame of
+    # each, timed, and held to each other (the kernel's every ordered
+    # segment against the unordered loop)
+    fields = rsw_restart_fields(*uvh, grid, rsw.RSWParams(f=3.0, Cg=1.0))
+    a0 = torch.ones_like(x0[0])
+    every = F["ray_every"]
+    ms = cuda_ms_run(lambda: mr.march_xka_cuda(fields, x0, k0, a0, grid,
+                                               disp, rdt, every), 3, 3)
+    mr.march_xka_reference(fields, x0, k0, a0, grid, disp, rdt, 1)
+    want, plain = timed_run(
+        lambda: mr.march_xka_reference(fields, x0, k0, a0, grid, disp, rdt,
+                                       every), every)
+    got = mr.march_xka_cuda(fields, x0, k0, a0, grid, disp, rdt, every)
+    errs = {name: float(((g - w).abs() / (w.abs() if name == "a" else 1.0))
+                        .max())
+            for name, g, w in zip("xka", got, want)}
+    err = max(errs.values())
+    if not err <= XKA_F32_TOL:
+        raise AssertionError(f"rsw_restart_512: kernel against the plain "
+                             f"route over {every} steps {errs} > "
+                             f"{XKA_F32_TOL}")
+    ray.update(dtype="float32", packets=n_p, dt=rdt, route="kernel",
+               routes=routes, launches=launches,
+               segments=mr.split_steps(every, segment),
                packet_steps_per_s=n_p * F["ray_steps"] / (ray["event_ms"]
                                                           / 1e3),
+               kernel_ms_per_step=ms / every,
+               plain_route_ms_per_step=plain["ms_per_step"],
+               plain_route_over_kernel=plain["ms_per_step"] / (ms / every),
+               plain_route_peak_memory_bytes=plain["peak_memory_bytes"],
+               err_vs_plain_route=errs, steps_vs_plain_route=every,
+               tolerance=XKA_F32_TOL,
                action_min=amin, action_max=amax,
                max_packet_displacement=float((xs[-1] - x0).abs().max()))
-    del xs, ks, as_, x0, k0, uvh, st
+    flops = xka_counts.flops(2, n_p, every)
+    nbytes = xka_counts.bytes_moved(grid.nx, grid.ny, n_p, 4)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FLOPS_PER_S[torch.float32] * 1e3
+    bounds = {"march_xka": {
+        "shape": f"fields (7, {grid.nx}, {grid.ny}), x0 k0 (2, {n_p}), "
+                 f"a0 ({n_p},) float32, {every} steps, order 2",
+        "bytes": nbytes, "flops": flops, "ms_by_bytes": by_bytes,
+        "ms_by_operations": by_ops,
+        "counts": "portbench/counts/xka.py",
+        "tolerance": {"x, k atol": XKA_F32_TOL, "a rtol": XKA_F32_TOL,
+                      "steps": every}}}
+    row = {"name": "march_xka", "route": "cuda",
+           "source": SOURCES["march_xka"], "replaces": None,
+           "max_abs_err": max(errs["x"], errs["k"]),
+           "a_max_rel_err": errs["a"], "ms": ms,
+           "plain_ms": plain["event_ms"],
+           "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "library_ms": None, "segments": ray["segments"]}
+    del xs, ks, as_, x0, k0, uvh, st, fields, a0, got, want
+    reset_launches()
     # QG with passive particles, the one-layer main path's state
     s1, c1 = setup_coupled(CoupledConfig(**FULL), device=dev)
     rng = np.random.default_rng(31)
@@ -3734,16 +3818,16 @@ def phase_solvers_path(dev):
                    htot_first=htot0,
                    htot_last=float(htot[-1]), mass_drift_rel=mass,
                    t_end=float(ts_swp[-1]))
-    launches = read_launches()
-    if any(launches.values()):
-        raise AssertionError(f"solvers_path launched a kernel: {launches}")
+    others = read_launches()
+    if any(others.values()):
+        raise AssertionError(f"solvers_path launched a kernel: {others}")
     emit("solvers_path", card_vs_cpu=dict(SOLVERS_SMALL, dtype="float64",
                                           atol=SOLVERS_ATOL, max_err=small,
                                           seconds=seconds_small),
          swk_512=swk, swkU_tc_512=tc_run, rsw_restart_512=ray,
          qg_particles_512=qgr, swp_512=swp_run, launches=launches,
          seconds=time.perf_counter() - t_phase)
-    return launches
+    return [row], bounds, launches
 
 
 # ---------------------------------------------------------------------------
@@ -4246,7 +4330,9 @@ def main():
     bounds.update(bounds_ens)
     launches_grad, transpose_by_direction = phase_grad_path(dev)
     launches_analytic = phase_analytic_path(dev)
-    launches_solvers = phase_solvers_path(dev)
+    rows_xka, bounds_xka, launches_solvers = phase_solvers_path(dev)
+    rows += rows_xka
+    bounds.update(bounds_xka)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
         launches_multirank = phase_multirank_path(dev, Path(tmp), main,
                                                   final_two, final_one)

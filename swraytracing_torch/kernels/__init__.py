@@ -54,7 +54,12 @@ Kernels (C entry -> wrapper):
                                 ops.march_rays.march_rays_cuda
   swr_rays_cell_histogram,      csrc/march_rays.cu: the packets' order by
   swr_rays_cell_scatter         cell (a counting sort), for the same wrapper
-csrc/scalar.cuh holds the scalar helpers the march kernels share.
+                                and for march_xka_cuda
+  swr_march_xka_f32, _f64       csrc/march_xka.cu
+                                ops.march_rays.march_xka_cuda
+csrc/scalar.cuh holds the scalar helpers the march kernels share, and
+csrc/rays_stencil.cuh the node layout and stencil helpers of the two ray
+marches.
 """
 
 from __future__ import annotations
@@ -207,6 +212,17 @@ def _bind(lib: ctypes.CDLL) -> None:
             i64, i32, i32,       # Np, nx, ny
             f64, f64, f64,       # dx, dy, dt
             f64, f64,            # f^2, Cg^2
+            i32, i32, i32,       # nsteps, order, threads per block
+            vp]                  # stream
+    for xka in (lib.swr_march_xka_f32, lib.swr_march_xka_f64):
+        xka.restype = i32
+        xka.argtypes = [
+            vp, vp, vp, vp,      # fields, x0, k0, a0
+            vp, vp, vp,          # xN, kN, aN
+            vp,                  # permutation by cell, or null
+            i64, i32, i32,       # Np, nx, ny
+            f64, f64, f64,       # dx, dy, dt
+            f64, f64,            # f, Cg^2
             i32, i32, i32,       # nsteps, order, threads per block
             vp]                  # stream
     lib.swr_rays_cell_histogram.restype = i32

@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rays_stencil.cuh"
 #include "scalar.cuh"
 
 namespace {
@@ -82,53 +83,6 @@ struct RayArgs {
   double dx, dy, dt, f2, gH;
   int nsteps;
 };
-
-constexpr int NODE = 8;  // elements per grid node in F, 16-byte aligned
-
-// The six fields of one node.
-__device__ __forceinline__ void load_node(const float* __restrict__ p,
-                                          float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y;
-}
-__device__ __forceinline__ void load_node(const double* __restrict__ p,
-                                          double* v) {
-  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
-  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
-  const double2 c = __ldg(reinterpret_cast<const double2*>(p) + 2);
-  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y, v[4] = c.x, v[5] = c.y;
-}
-
-// Floored integer modulo (n > 0): C's % truncates toward zero.
-__device__ __forceinline__ int wrap_index(int v, int n) {
-  v %= n;
-  return v < 0 ? v + n : v;
-}
-
-// Lagrange basis weights for nodes -ORDER..ORDER+1 at fractional position
-// fr: products over ascending j, divided by the constant denominator.
-template <typename T, int ORDER>
-__device__ __forceinline__ void lagrange(T fr, T* w) {
-  constexpr int S = 2 * ORDER + 2;
-  T a[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) a[j] = fr - T(j - ORDER);
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    double denom = 1.0;
-    T p = T(0);
-    bool first = true;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      if (j == i) continue;
-      denom *= double(i - j);
-      p = first ? a[j] : p * a[j];
-      first = false;
-    }
-    w[i] = p / T(denom);
-  }
-}
 
 // x0, k0 may be xo, ko: a thread reads and writes its own packet only.
 template <typename T, int ORDER>

@@ -24,13 +24,22 @@ call of ops/march_rays.march_rays, the march kernel (K4) with the packets
 ordered by cell. On the plain route (everything else: CPU tensors,
 analytic or blended flows, the other three integrators) it steps with the
 plain integrators of models/rays.py, as the JAX package does (through
-prebuilt windows from 65536 packets on). `raytrace_rsw_restart` steps with
-rays.rk4_xka_step through the stencil.
+prebuilt windows from 65536 packets on). `raytrace_rsw_restart` takes one
+of two routes the same way (`rsw_route`, counted in
+`raytrace_rsw_restart.routes`) by the device alone: on a CUDA device, one
+call a frame of ops/march_rays.march_xka, the x-k-a march kernel with the
+packets ordered by cell (a dtype it has no kernel for raises there); on
+the CPU its plain version march_xka_reference, the rays.rk4_xka_step loop
+through the stencil. Its seven grids (the
+geostrophic velocity, its gradients, the depth factor H) come from
+`rsw_restart_fields`.
 
 The port's spans (utils/profiling.span, off unless a spans() or trace()
 block is open): swr.frozen (a raytrace_frozen call), swr.frozen.march
 (each march_rays call of the kernel route) and swr.frozen.diag (a frame's
-omega and Omega_abs, both routes); inside march_rays, ops/march_rays opens
+omega and Omega_abs, both routes); swr.rsw (a raytrace_rsw_restart call),
+swr.rsw.fields (its seven grids) and swr.rsw.march (each march call,
+either route); inside march_rays and march_xka, ops/march_rays opens
 swr.rays.order around each ordering by cell.
 """
 
@@ -52,7 +61,7 @@ from .fields import GriddedFlow, flow_from_qk
 from . import rays
 
 __all__ = ["FrozenResult", "raytrace_frozen", "raytrace_pv_snapshot",
-           "raytrace_rsw_restart", "ring_ics"]
+           "raytrace_rsw_restart", "rsw_restart_fields", "ring_ics"]
 
 
 class FrozenResult(NamedTuple):
@@ -237,6 +246,37 @@ def raytrace_pv_snapshot(pv_path, frame: int, nx: int, Kd2: float,
                            stepper)
 
 
+def rsw_restart_fields(u, v, h, grid: SpectralGrid, p) -> torch.Tensor:
+    """The seven grids the x-k-a march reads from an RSW (u, v, h) state
+    (raytrace_sw.m:25-53): the wave/vortex decomposition's geostrophic
+    part (models/rsw.wave_vortex_decompose), its four velocity gradients
+    by spectral differentiation, and the depth factor H = 1 + eta_g.
+    Returns (7, nx, ny) [ug, vg, ug_x, ug_y, vg_x, vg_y, H] on the device
+    and in the dtype of u; p is the RSWParams (f, Cg)."""
+    from .rsw import wave_vortex_decompose
+
+    (ug, vg, hg), _ = wave_vortex_decompose(u, v, h, grid, p)
+    Sk = sp.to_spectral(torch.stack([ug, vg]), grid)
+    return torch.cat([
+        torch.stack([ug, vg]),
+        sp.to_grid(torch.stack([sp.ddx(Sk[0], grid), sp.ddy(Sk[0], grid),
+                                sp.ddx(Sk[1], grid), sp.ddy(Sk[1], grid)]),
+                   grid),
+        (1.0 + hg)[None]])
+
+
+# Calls of raytrace_rsw_restart by route, also raytrace_rsw_restart.routes
+_RSW_ROUTES_TAKEN = {"kernel": 0, "plain": 0}
+
+
+def rsw_route(device) -> str:
+    """The route raytrace_rsw_restart takes: "kernel" on a CUDA device,
+    whatever the dtype (the kernel's wrapper raises for one it has no
+    kernel for: nothing falls back to the plain route on the card);
+    "plain" on the CPU."""
+    return "kernel" if torch.device(device).type == "cuda" else "plain"
+
+
 def raytrace_rsw_restart(u, v, h, disp: Dispersion, grid: SpectralGrid,
                          x0, k0, a0=None, dt: float = 1e-3,
                          nsteps: int = 1000, save_every: int = 10, *,
@@ -249,43 +289,51 @@ def raytrace_rsw_restart(u, v, h, disp: Dispersion, grid: SpectralGrid,
     numpy arrays or tensors, taken to `device` (None = the CUDA device;
     raises when there is none) in `dtype`. Returns (x, k, a, t) frame
     stacks: (nf, 2, Np) x2 and (nf, Np) on the device, t (nf,) float64 on
-    the host.
-    """
-    from .rsw import RSWParams, wave_vortex_decompose
+    the host; nsteps // save_every frames, one after each save_every
+    steps. The stencil is the reference's Iord = 2.
 
-    device = resolve_device(device)
+    The seven grids come from rsw_restart_fields, once a call. Each frame
+    is then one march call, by the route rsw_route gives (counted in
+    raytrace_rsw_restart.routes): on the kernel route
+    ops/march_rays.march_xka, the x-k-a kernel with the packets ordered by
+    cell; on the plain route its plain version march_xka_reference, the
+    rk4_xka_step loop through the stencil. On one H100 at 512^2 and 2^20
+    packets the plain route took about 14 ms a step (chip_smoke.py, phase
+    solvers_path)."""
+    from .rsw import RSWParams
 
-    def tensor(a):
-        return as_tensor(a, dtype, device)
+    with span("swr.rsw"):
+        device = resolve_device(device)
+        route = rsw_route(device)
+        _RSW_ROUTES_TAKEN[route] += 1
 
-    p = RSWParams(f=disp.f, Cg=disp.Cg)
-    (ug, vg, hg), _ = wave_vortex_decompose(tensor(u), tensor(v),
-                                            tensor(h), grid, p)
-    # geostrophic velocity-gradient grids from the decomposed flow
-    Sk = sp.to_spectral(torch.stack([ug, vg]), grid)
-    fields = torch.cat([
-        torch.stack([ug, vg]),
-        sp.to_grid(torch.stack([sp.ddx(Sk[0], grid), sp.ddy(Sk[0], grid),
-                                sp.ddx(Sk[1], grid), sp.ddy(Sk[1], grid)]),
-                   grid)])
-    H = 1.0 + hg
-    flow = GriddedFlow(fields=fields, grid=grid)
-    x, k = tensor(x0), tensor(k0)
-    a = torch.ones_like(x[0]) if a0 is None else tensor(a0)
+        def tensor(a):
+            return as_tensor(a, dtype, device)
 
-    xs, ks, as_ = [], [], []
-    nframes = nsteps // save_every
-    for _ in range(nframes):
-        for _ in range(save_every):
-            x, k, a = rays.rk4_xka_step(x, k, a, dt, disp, flow, H=H)
-        xs.append(x)
-        ks.append(k)
-        as_.append(a)
-    ts = torch.tensor([dt * save_every * (1 + j) for j in range(nframes)],
-                      dtype=torch.float64)
+        with span("swr.rsw.fields"):
+            fields = rsw_restart_fields(tensor(u), tensor(v), tensor(h),
+                                        grid, RSWParams(f=disp.f, Cg=disp.Cg))
+        x, k = tensor(x0).contiguous(), tensor(k0).contiguous()
+        a = (torch.ones_like(x[0]) if a0 is None
+             else tensor(a0).contiguous())
+        march = (_march_rays.march_xka if route == "kernel"
+                 else _march_rays.march_xka_reference)
+        xs, ks, as_ = [], [], []
+        nframes = nsteps // save_every
+        for _ in range(nframes):
+            with span("swr.rsw.march"):
+                x, k, a = march(fields, x, k, a, grid, disp, dt, save_every)
+            xs.append(x)
+            ks.append(k)
+            as_.append(a)
+        ts = torch.tensor([dt * save_every * (1 + j) for j in range(nframes)],
+                          dtype=torch.float64)
 
-    def stack(frames, like):
-        return (torch.stack(frames) if frames
-                else like.new_zeros((0,) + tuple(like.shape)))
+        def stack(frames, like):
+            return (torch.stack(frames) if frames
+                    else like.new_zeros((0,) + tuple(like.shape)))
 
-    return stack(xs, x), stack(ks, k), stack(as_, a), ts
+        return stack(xs, x), stack(ks, k), stack(as_, a), ts
+
+
+raytrace_rsw_restart.routes = _RSW_ROUTES_TAKEN

@@ -232,11 +232,13 @@ def rk4_xka_step(x, k, a, dt, disp: Dispersion, flow, H=None):
     da/dt = -a div C.
 
     H: optional (nx, ny) depth factor grid (1 + eta_g); if given, the
-    local group velocity uses the interpolated depth.
+    local group velocity uses the depth interpolated with the flow's
+    stencil order (2 for a flow without one).
     """
     grid = flow.grid
+    order = getattr(flow, "order", 2)
     if H is not None:
-        H0 = interpolate(H, x[0], x[1], grid)
+        H0 = interpolate(H, x[0], x[1], grid, order)
         C = disp.group_velocity_depth(k, H0)
     else:
         C = disp.group_velocity(k)
@@ -252,7 +254,8 @@ def rk4_xka_step(x, k, a, dt, disp: Dispersion, flow, H=None):
     xn = x + (x1 + 2 * x2 + 2 * x3 + x4) / 6.0
 
     ev = flow.at(xn[0], xn[1])
-    Hn = interpolate(H, xn[0], xn[1], grid) if H is not None else None
+    Hn = (interpolate(H, xn[0], xn[1], grid, order) if H is not None
+          else None)
     divC, domx, domy = disp.div_group_velocity(k, ev.u, ev.v, Hn)
     gom = torch.stack([domx, domy], dim=0)
 

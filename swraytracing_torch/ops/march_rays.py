@@ -15,20 +15,33 @@ the thread that runs it, and the state crosses a segment boundary in
 device memory at full precision: ordered and segmented, the march gives
 the bits of one unordered launch.
 
-One device source, hand-written CUDA under kernels/csrc, with the plain
-PyTorch versions beside the wrapper here:
+The x-k-a march of the RSW restart workflow (ray_trace_sw/raytrace_sw.m)
+is the same design for another stepper: step_packet_xka's RK4 on the
+position, the wavevector and the wave action, through the six grids and
+the depth factor H = 1 + eta_g (seven grids), four stencil evaluations a
+step where the Strang step takes one; its packets carry the action a
+besides x and k, and the ordering permutes it too.
+
+Two device sources, hand-written CUDA under kernels/csrc (sharing
+csrc/rays_stencil.cuh), with the plain PyTorch versions beside the
+wrappers here:
 
   march_rays_cuda  (csrc/march_rays.cu)   plain: march_rays_reference
     the march kernel                        march_rays_reference
     cell_order_cuda (key, histogram,        cell_order_reference
       scatter kernels)                        (packet_cell_keys)
     the segments                            march_rays_segmented_reference
+  march_xka_cuda   (csrc/march_xka.cu)    plain: march_xka_reference
+    the x-k-a march kernel, the same        march_xka_segmented_reference
+      ordering and segments
 
-`march_rays` picks by the device of the tensors it is given: CPU tensors
-go to the plain version, CUDA tensors to the kernel. Nothing falls back:
-on a CUDA tensor the kernel launches or the call raises.
+`march_rays` and `march_xka` pick by the device of the tensors they are
+given: CPU tensors go to the plain version, CUDA tensors to the kernel.
+Nothing falls back: on a CUDA tensor the kernel launches or the call
+raises.
 
-Cites: symplectic splitting ode_symplectic.m:13-37; stencil interpolation
+Cites: symplectic splitting ode_symplectic.m:13-37; the x-k-a step
+ray_trace_sw/step_packet_xka.m:38-91 and cg_sw.m; stencil interpolation
 qg_flow_ray_trace/interpolate.m:12-50.
 """
 
@@ -41,10 +54,11 @@ from .grid import SpectralGrid
 from .interp import _cell_coords
 from .march_window import _DTYPE_CODE, _require_cuda
 
-# The entry and its two sides. What else stands in this module (the cell
+# The entries and their two sides. What else stands in this module (the cell
 # key, the ordering, the splitting rule, march_rays_cuda_by) is the inside
 # of march_rays_cuda, importable by name for the tests and the smoke run.
-__all__ = ["march_rays_reference", "march_rays_cuda", "march_rays"]
+__all__ = ["march_rays_reference", "march_rays_cuda", "march_rays",
+           "march_xka_reference", "march_xka_cuda", "march_xka"]
 
 _ORDERS = (1, 2, 3)   # stencil half-widths the kernel is instantiated for
 _THREADS = 128        # packets per CUDA block
@@ -131,28 +145,43 @@ def march_rays_segmented_reference(fields, x0, k0, grid: SpectralGrid, disp,
     the rounding of the stencil sum only: PyTorch's sum on the CPU groups
     its terms by an element's place in the vector, which the kernel on the
     card does not."""
+    return _segmented_reference(
+        lambda state, steps: march_rays_reference(fields, *state, grid, disp,
+                                                  dt, steps, order),
+        (x0, k0), grid, disp, dt, nsteps, segment, ordered)
+
+
+def _segmented_reference(march, state, grid: SpectralGrid, disp, dt: float,
+                         nsteps: int, segment: int | None, ordered: bool):
+    """The segments of march_rays_segmented_reference and
+    march_xka_segmented_reference: the steps split by split_steps (segment
+    None: by segment_steps), each segment one call march(state, steps),
+    ordered by cell with every packet tensor of `state` (x (2, Np) first,
+    the packet on the last axis) permuted in and put back."""
     if segment is None:
         segment = segment_steps(dt, grid, disp)
-    x, k = x0, k0
     for steps in split_steps(nsteps, segment):
         if not ordered:
-            x, k = march_rays_reference(fields, x, k, grid, disp, dt, steps,
-                                        order)
+            state = march(state, steps)
             continue
-        perm = cell_order_reference(x, grid)
-        xs, ks = march_rays_reference(fields, x[:, perm], k[:, perm], grid,
-                                      disp, dt, steps, order)
-        x, k = torch.empty_like(xs), torch.empty_like(ks)
-        x[:, perm], k[:, perm] = xs, ks
-    return x, k
+        perm = cell_order_reference(state[0], grid)
+        moved = march(tuple(t[..., perm] for t in state), steps)
+        state = tuple(torch.empty_like(t) for t in moved)
+        for t, m in zip(state, moved):
+            t[..., perm] = m
+    return state
 
 
 def node_major_fields(fields) -> torch.Tensor:
-    """(6, nx, ny) grids as the (nx, ny, 8) array the march kernel reads:
-    the six fields of a node side by side, two lanes of padding (one
-    aligned 32-byte sector a node in float32)."""
+    """(nf, nx, ny) grids, nf <= 8, as the (nx, ny, 8) array the ray march
+    kernels read: the fields of a node side by side, the lanes past nf
+    zero (one aligned 32-byte sector a node in float32). K4 reads six
+    (two lanes of padding), the x-k-a march seven (H in lane 6)."""
+    if fields.shape[0] > _NODE:
+        raise ValueError(f"at most {_NODE} fields a node, got "
+                         f"{fields.shape[0]}")
     nodes = fields.new_zeros((*fields.shape[1:], _NODE))
-    nodes[..., :6] = fields.permute(1, 2, 0)
+    nodes[..., :fields.shape[0]] = fields.permute(1, 2, 0)
     return nodes
 
 
@@ -209,49 +238,68 @@ def march_rays_cuda_by(fields, x0, k0, grid: SpectralGrid, disp, dt: float,
     time them. `ordered=False, segment=nsteps` is one
     launch on the packets as they come. The results are the same bits
     whatever is named. Counts as march_rays_cuda does."""
+    return _march_cuda_segments(
+        march_rays_cuda, "swr_march_rays", 6, fields,
+        (("x0", x0, (2,)), ("k0", k0, (2,))), (disp.f ** 2, disp.gH), grid,
+        disp, dt, nsteps, order, segment, ordered)
+
+
+def _march_cuda_segments(wrapper, entry: str, nf: int, fields, state,
+                         consts, grid: SpectralGrid, disp, dt: float,
+                         nsteps: int, order: int, segment: int | None,
+                         ordered: bool):
+    """The march on the card around one kernel, as march_rays_cuda_by and
+    march_xka_cuda_by run it: the checks, the split of the steps, the nf
+    grids copied node-major once, then for each segment an ordering of the
+    packets by cell and one launch of the C entry `entry` (its _f32 or
+    _f64 form), the later segments marching the results in place.
+    `state` holds (key, tensor, leading shape) for each packet tensor, x
+    first: the kernel reads them through the permutation, in this order,
+    and writes fresh tensors of their shapes; `consts` are the entry's
+    scalars after dt. Counts the launches in `wrapper.launches` and leaves
+    the segments in `wrapper.last_segments`."""
     from .. import kernels
 
+    name = wrapper.__name__
+    x0 = state[0][1]
     if x0.dtype not in _DTYPE_CODE:
-        raise ValueError("march_rays_cuda: x0 must be float32 or float64, "
+        raise ValueError(f"{name}: x0 must be float32 or float64, "
                          f"got {x0.dtype}")
     if order not in _ORDERS:
-        raise ValueError(f"march_rays_cuda has kernels for order in "
-                         f"{_ORDERS}, got {order}")
+        raise ValueError(f"{name} has kernels for order in {_ORDERS}, "
+                         f"got {order}")
     Np = x0.shape[-1]
-    _require_cuda("march_rays_cuda",
-                  ("fields", fields, x0.dtype, (6, grid.nx, grid.ny)),
-                  ("x0", x0, x0.dtype, (2, Np)),
-                  ("k0", k0, x0.dtype, (2, Np)))
+    _require_cuda(name, ("fields", fields, x0.dtype, (nf, grid.nx, grid.ny)),
+                  *((key, t, x0.dtype, (*lead, Np)) for key, t, lead in state))
     if segment is None:
         segment = segment_steps(dt, grid, disp)
     segments = split_steps(nsteps, segment)
+    ins = [t for _, t, _ in state]
     if Np == 0 or not segments:  # nothing to launch
-        return x0.clone(), k0.clone()
-    xN = torch.empty_like(x0)
-    kN = torch.empty_like(k0)
+        return tuple(t.clone() for t in ins)
+    outs = [torch.empty_like(t) for t in ins]
     lib = kernels.load()
-    entry = lib.swr_march_rays_f32 if x0.dtype == torch.float32 \
-        else lib.swr_march_rays_f64
+    launch = getattr(lib, entry + ("_f32" if x0.dtype == torch.float32
+                                   else "_f64"))
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         nodes = node_major_fields(fields)  # once per call
-        x, k = x0, k0  # later segments march xN, kN in place
         for steps in segments:
             perm = None
             if ordered:
                 with span("swr.rays.order"):
-                    perm = cell_order_cuda(x, grid)
-            err = entry(
-                nodes.data_ptr(), x.data_ptr(), k.data_ptr(),
-                xN.data_ptr(), kN.data_ptr(),
+                    perm = cell_order_cuda(ins[0], grid)
+            err = launch(
+                nodes.data_ptr(), *(t.data_ptr() for t in ins),
+                *(t.data_ptr() for t in outs),
                 None if perm is None else perm.data_ptr(), Np, grid.nx,
-                grid.ny, grid.dx, grid.dy, float(dt), disp.f ** 2, disp.gH,
-                steps, order, _THREADS, stream)
-            kernels.check(err, "swr_march_rays")
-            march_rays_cuda.launches += 1
-            x, k = xN, kN
-    march_rays_cuda.last_segments = segments
-    return xN, kN
+                grid.ny, grid.dx, grid.dy, float(dt), *consts, steps, order,
+                _THREADS, stream)
+            kernels.check(err, entry)
+            wrapper.launches += 1
+            ins = outs
+    wrapper.last_segments = segments
+    return tuple(outs)
 
 
 def march_rays_cuda(fields, x0, k0, grid: SpectralGrid, disp, dt: float,
@@ -294,3 +342,94 @@ def march_rays(fields, x0, k0, grid: SpectralGrid, disp, dt: float,
         return march_rays_cuda(fields, x0, k0, grid, disp, dt, nsteps, order)
     return march_rays_reference(fields, x0, k0, grid, disp, dt, nsteps,
                                 order)
+
+
+# -- the x-k-a march (step_packet_xka) ---------------------------------------
+
+def march_xka_reference(fields, x0, k0, a0, grid: SpectralGrid, disp,
+                        dt: float, nsteps: int, order: int = 2):
+    """Plain PyTorch x-k-a march with identical semantics (any device):
+    nsteps models/rays.rk4_xka_step calls on a GriddedFlow of the six
+    velocity grids, with the depth grid H. The plain version of
+    march_xka_cuda and the CPU path.
+
+    Args:
+      fields: (7, nx, ny) stacked [u, v, ux, uy, vx, vy, H].
+      x0, k0: (2, Np) coordinate-first; a0: (Np,) wave action.
+    Returns (xN, kN, aN).
+    """
+    from ..models.fields import GriddedFlow
+    from ..models.rays import rk4_xka_step
+
+    flow = GriddedFlow(fields=fields[:6], grid=grid, order=order)
+    x, k, a = x0, k0, a0
+    for _ in range(nsteps):
+        x, k, a = rk4_xka_step(x, k, a, dt, disp, flow, H=fields[6])
+    return x, k, a
+
+
+def march_xka_segmented_reference(fields, x0, k0, a0, grid: SpectralGrid,
+                                  disp, dt: float, nsteps: int,
+                                  order: int = 2, segment: int | None = None,
+                                  ordered: bool = True):
+    """Plain version of what march_xka_cuda does around its kernel, as
+    march_rays_segmented_reference is of march_rays_cuda: the steps split
+    by split_steps, each segment marched with the packets (x, k and a)
+    permuted into the order of their cells and the results put back."""
+    return _segmented_reference(
+        lambda state, steps: march_xka_reference(fields, *state, grid, disp,
+                                                 dt, steps, order),
+        (x0, k0, a0), grid, disp, dt, nsteps, segment, ordered)
+
+
+def march_xka_cuda_by(fields, x0, k0, a0, grid: SpectralGrid, disp,
+                      dt: float, nsteps: int, order: int = 2, *,
+                      segment: int | None = None, ordered: bool = True):
+    """march_xka_cuda with the segment length named (None: segment_steps)
+    and the ordering by cell switched on or off, as march_rays_cuda_by is
+    for K4: there to hold the routes against each other and to time them.
+    The results are the same bits whatever is named. Counts as
+    march_xka_cuda does."""
+    return _march_cuda_segments(
+        march_xka_cuda, "swr_march_xka", 7, fields,
+        (("x0", x0, (2,)), ("k0", k0, (2,)), ("a0", a0, ())),
+        (disp.f, disp.gH), grid, disp, dt, nsteps, order, segment, ordered)
+
+
+def march_xka_cuda(fields, x0, k0, a0, grid: SpectralGrid, disp, dt: float,
+                   nsteps: int, order: int = 2):
+    """The x-k-a march on the card (kernels/csrc/march_xka.cu): arguments
+    and results as march_xka_reference, contiguous float32 or float64 CUDA
+    tensors only, any Np. One thread per packet, x, k and a in registers
+    across a segment of steps; the steps split and the packets ordered by
+    cell before each segment as in march_rays_cuda (K4's counting sort),
+    the kernel reading and writing x, k and a through that permutation.
+    Each call first copies `fields` into a (nx, ny, 8) node-major scratch
+    tensor (H in lane 6). Launches on the current stream; does not
+    synchronise and reads no device value on the host. Counts its launches,
+    one per segment, in `march_xka_cuda.launches`, and leaves the latest
+    call's segments in `march_xka_cuda.last_segments`."""
+    return march_xka_cuda_by(fields, x0, k0, a0, grid, disp, dt, nsteps,
+                             order)
+
+
+march_xka_cuda.launches = 0
+march_xka_cuda.last_segments = []
+
+
+def march_xka(fields, x0, k0, a0, grid: SpectralGrid, disp, dt: float,
+              nsteps: int, order: int = 2):
+    """March all packets nsteps x-k-a steps through a frozen RSW frame's
+    seven grids: the CUDA kernel on CUDA tensors, march_xka_reference on
+    CPU tensors. Forward only; differentiate march_xka_reference.
+
+    Args:
+      fields: (7, nx, ny) stacked [u, v, ux, uy, vx, vy, H].
+      x0, k0: (2, Np); a0: (Np,).
+    Returns (xN, kN, aN).
+    """
+    if x0.is_cuda:
+        return march_xka_cuda(fields, x0, k0, a0, grid, disp, dt, nsteps,
+                              order)
+    return march_xka_reference(fields, x0, k0, a0, grid, disp, dt, nsteps,
+                               order)

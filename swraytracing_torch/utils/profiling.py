@@ -39,8 +39,17 @@ The spans, a layer each, at its boundary in the code:
                      route: the node-major copy, the orderings and K4
   swr.frozen.diag    the initial Omega_abs and each frame's omega and
                      Omega_abs
+  swr.rsw            one models/frozen.raytrace_rsw_restart call, either
+                     route
+  swr.rsw.fields     its seven grids (rsw_restart_fields: the wave/vortex
+                     decomposition and the gradients)
+  swr.rsw.march      each march call of it, one a frame: ops/march_rays.
+                     march_xka (the node-major copy, the orderings and the
+                     x-k-a kernel) or, on the plain route,
+                     march_xka_reference
   swr.rays.order     each ordering by cell (cell_order_cuda) in
-                     ops/march_rays.march_rays_cuda, whoever calls it
+                     ops/march_rays.march_rays_cuda and march_xka_cuda,
+                     whoever calls them
   swr.graph          each replay of a save interval's captured lock-steps
                      (models/step_graph.py, the chunk loop's graph route)
 

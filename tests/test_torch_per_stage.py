@@ -172,6 +172,31 @@ def test_rk4_xka_step(with_depth):
         assert_close(g, w, atol=ATOL)
 
 
+@pytest.mark.parametrize("order", [1, 3])
+def test_rk4_xka_step_depth_at_the_flow_order(order, monkeypatch):
+    """The port interpolates H with the flow's stencil order (the x-k-a
+    kernel reads H beside the velocities, at one order); the JAX step
+    interpolates it at its default order 2, so it is held here with its
+    interpolation taken at the flow's order too."""
+    rng = np.random.default_rng(10 + order)
+    F = smooth_fields(rng, 6)
+    tf = tfi.GriddedFlow(fields=to_torch(F), grid=TGrid.square(NX, L),
+                         order=order)
+    jf = jfi.GriddedFlow(fields=to_jax(F), grid=JGrid.square(NX, L),
+                         order=order)
+    x, k = _packets(rng)
+    a = rng.uniform(0.5, 2.0, x.shape[1])
+    H = 1.0 + 0.1 * smooth_fields(rng, 1)[0]
+    monkeypatch.setattr(jra, "interpolate",
+                        lambda *args: jin.interpolate(*args, order=order))
+    got = tra.rk4_xka_step(to_torch(x), to_torch(k), to_torch(a), 0.01, TD,
+                           tf, to_torch(H))
+    want = jra.rk4_xka_step(to_jax(x), to_jax(k), to_jax(a), 0.01, JD, jf,
+                            to_jax(H))
+    for g, w in zip(got, want):
+        assert_close(g, w, atol=ATOL)
+
+
 @pytest.mark.parametrize("rtol,dt0,max_steps", [(1e-6, None, 200_000),
                                                 (1e-9, 1e-4, 200_000),
                                                 (1e-10, None, 7)])
